@@ -1,0 +1,63 @@
+"""The port imports and runs without JAX: every submodule imports, and the
+plain slice (pose stage -> rasterizer -> renderer -> mux) runs at a tiny
+size, in a child process where importing jax, flax or optax fails."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent(
+    """
+    import sys
+    for name in ("jax", "jaxlib", "flax", "optax"):
+        sys.modules[name] = None  # any import of them raises ImportError
+
+    import importlib, pkgutil, tempfile
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    import text2video_tpu_torch
+    mods = [m.name for m in pkgutil.walk_packages(
+        text2video_tpu_torch.__path__, "text2video_tpu_torch.")]
+    for name in mods:
+        importlib.import_module(name)
+
+    from text2video_tpu.config import PipelineConfig, RenderConfig
+    from text2video_tpu_torch import pipeline
+    from text2video_tpu_torch.golden import golden_pose_inputs
+    from text2video_tpu_torch.render import Renderer
+
+    profile, pdict, table, ts = golden_pose_inputs(n_frames=6)
+    port_stage = pipeline.PoseStage
+    pipeline.PoseStage = (
+        lambda p, device="cpu": port_stage(p, pdict, table, device))
+    renderer = Renderer.create(config=RenderConfig(load_size=64), base_ch=8,
+                               n_blocks=1, dtype=torch.float32)
+    renderer.time_bucket = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PipelineConfig(person=profile, out_dir=tmp, stream=False,
+                             pose_device="device")
+        run = pipeline.Text2VideoPipeline(cfg, renderer).synthesize(
+            ts, "utt", keep_arrays=True)
+    assert run.frames.shape == (6, 64, 64, 3), run.frames.shape
+    assert run.frames.std() > 0
+    loaded = [k for k, v in sys.modules.items()
+              if v is not None and k.split(".")[0] in ("jax", "flax", "optax")]
+    assert not loaded, loaded
+    print("NOJAX_OK", len(mods))
+    """
+)
+
+
+def test_port_imports_and_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout

@@ -1,0 +1,155 @@
+"""Building blocks of the pose2frame generator, in PyTorch.
+
+Counterpart of ``text2video_tpu/models/layers.py`` (plain forms only; the
+TPU phase forms are not ported). Public tensors are NHWC, as in the JAX
+package. Parameters keep the flax layout and dtype — conv kernels HWIO
+``[k, k, cin, cout]`` float32 under ``kernel``, biases under ``bias``,
+instance-norm ``scale``/``bias`` — and are cast to the compute dtype at
+use, so a converted flax tree (``convert.py``) loads without transposes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from text2video_tpu_torch.ops import fused_resblock
+
+# flax's lecun_normal draws from a normal truncated at +-2 std and rescales
+# by this constant so the kept samples have the nominal variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad the H and W axes of an NHWC tensor."""
+    if pad == 0:
+        return x
+    y = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
+    return y.permute(0, 2, 3, 1)
+
+
+class Conv(nn.Module):
+    """VALID NHWC conv; the bias is added in the compute dtype."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 stride: int = 1, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        self.kernel = nn.Parameter(
+            torch.zeros(kernel, kernel, in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """lecun-normal kernel (flax's default), zero bias."""
+        kh, kw, cin, _ = self.kernel.shape
+        std = math.sqrt(1.0 / (kh * kw * cin)) / _TRUNC_STD
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.kernel, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2),
+                     self.kernel.to(dt).permute(3, 2, 0, 1),
+                     stride=self.stride)
+        return y.permute(0, 2, 3, 1) + self.bias.to(dt)
+
+
+class InstanceNorm(nn.Module):
+    """Per-sample, per-channel normalisation over H and W with f32 stats:
+    ``var = max(E[x^2] - E[x]^2, 0)``, eps 1e-5, and the affine applied as
+    ``x * mul + add`` with ``mul``/``add`` rounded to the compute dtype."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16,
+                 epsilon: float = 1e-5):
+        super().__init__()
+        self.dtype = dtype
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        """``stats``: precomputed ([B, C] mean, [B, C] var), as the fused
+        conv kernel emits them from its f32 accumulator."""
+        if stats is not None:
+            mean, var = stats
+        else:
+            mean = x.float().mean(dim=(1, 2))
+            m2 = x.square().float().mean(dim=(1, 2))
+            var = torch.clamp(m2 - mean.square(), min=0.0)
+        rstd = torch.rsqrt(var + self.epsilon)
+        mul = (rstd * self.scale).to(self.dtype)
+        add = (self.bias - mean * rstd * self.scale).to(self.dtype)
+        return x * mul[:, None, None, :] + add[:, None, None, :]
+
+
+class ConvBlock(nn.Module):
+    """ReflectPad -> Conv -> InstanceNorm -> ReLU (norm/act optional).
+
+    ``fused`` runs the conv and the norm statistics through
+    ``ops/fused_resblock.py::conv3x3_stats`` (kernel B1 on a card) — same
+    parameters and math; requires kernel 3, stride 1 and norm."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 stride: int = 1, norm: bool = True, act: bool = True,
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
+        super().__init__()
+        if fused and (kernel != 3 or stride != 1 or not norm):
+            raise ValueError("fused requires kernel=3, stride=1, norm")
+        self.pad = kernel // 2
+        self.act = act
+        self.dtype = dtype
+        self.fused = fused
+        self.conv = Conv(in_features, features, kernel, stride, dtype)
+        self.norm = InstanceNorm(features, dtype) if norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            # Looked up on the module at call time, so a check can swap in
+            # the plain version (chip_smoke.py does).
+            y, mean, var = fused_resblock.conv3x3_stats(
+                x.to(self.dtype).contiguous(), self.conv.kernel,
+                self.conv.bias)
+            y = self.norm(y, stats=(mean, var))
+        else:
+            y = self.conv(reflect_pad(x, self.pad))
+            if self.norm is not None:
+                y = self.norm(y)
+        return F.relu(y) if self.act else y
+
+
+class ResBlock(nn.Module):
+    """Two reflect-padded 3x3 ConvBlocks with a residual skip. Both convs
+    always go through the fused conv + statistics op, at every batch size."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.block0 = ConvBlock(features, features, dtype=dtype, fused=True)
+        self.block1 = ConvBlock(features, features, act=False, dtype=dtype,
+                                fused=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.block1(self.block0(x))
+
+
+class Upsample(nn.Module):
+    """2x nearest-neighbour upsample followed by a 3x3 ConvBlock."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.block = ConvBlock(in_features, features, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return self.block(x)

@@ -1,0 +1,72 @@
+"""Pose-synthesis stage: timestamps -> per-frame keypoint tracks
+(counterpart of ``text2video_tpu/pose_stage.py``; JSON emission is not
+ported yet).
+
+Both branches plan on the host with ``plan_pose_track``. ``device=False``
+runs the bit-exact float64 host blend and smoother; ``device=True`` runs the
+fused gather + blend + smoothing op (kernel B2 on a card) on the stage's
+torch device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from text2video_tpu.config import PersonProfile
+from text2video_tpu.frontend.timestamps import Timestamps
+from text2video_tpu.io.dicts import KeypointTable, PoseDictionary
+from text2video_tpu.ops.interp import PosePlan, plan_pose_track, synthesize_host
+from text2video_tpu.ops.smooth import smooth_host
+from text2video_tpu_torch.ops.fused_pose import synthesize_and_smooth
+
+
+@dataclasses.dataclass
+class PoseResult:
+    """Per-frame tracks of one utterance: interpolated face/pose [T, 210] /
+    [T, 75], the smoothed + mouth-re-pinned pair, and the gather plan."""
+
+    face: np.ndarray
+    pose: np.ndarray
+    face_smooth: np.ndarray
+    pose_smooth: np.ndarray
+    plan: PosePlan
+
+    @property
+    def num_frames(self) -> int:
+        return self.face.shape[0]
+
+
+class PoseStage:
+    def __init__(
+        self,
+        profile: PersonProfile,
+        pdict: Optional[PoseDictionary] = None,
+        table: Optional[KeypointTable] = None,
+        device="cpu",
+    ):
+        self.profile = profile
+        self.pdict = pdict or PoseDictionary.load(
+            profile.dict_path, profile.keypoint_layout)
+        self.table = table or KeypointTable.load_dir(
+            profile.keypoints_dir, profile.keypoint_layout)
+        self.device = torch.device(device)
+
+    def run(self, ts: Timestamps, device: bool = True) -> PoseResult:
+        """device=True: float32 fused op on ``self.device``; device=False:
+        the bit-exact float64 host path. The unsmoothed tracks always come
+        from the exact host blend."""
+        plan = plan_pose_track(ts, self.pdict, self.table, self.profile)
+        face, pose = synthesize_host(plan, self.table)
+        if device:
+            face_s, pose_s = synthesize_and_smooth(
+                plan, self.table, self.profile.smooth_width, self.device)
+            face_s = face_s.cpu().numpy().astype(np.float64)
+            pose_s = pose_s.cpu().numpy().astype(np.float64)
+        else:
+            face_s, pose_s = smooth_host(face, pose, self.profile.smooth_width)
+        return PoseResult(face=face, pose=pose, face_smooth=face_s,
+                          pose_smooth=pose_s, plan=plan)

@@ -1,0 +1,266 @@
+"""Autoregressive pose2frame rendering (counterpart of
+``text2video_tpu/render.py``, scan decoding only).
+
+Label maps arrive as device tensors ([B, chunk, H, W, 3]); the generator
+runs once per frame in a Python loop — the eager counterpart of the JAX
+package's chunked ``lax.scan`` — with the autoregressive state (previous
+frames, previous label maps, step) carried from chunk to chunk in the
+compute dtype. Frames are quantized to uint8 (or converted to YUV420) on the
+device before they go to the host.
+
+Not ported here: Jacobi decoding, ``render_many`` and mesh sharding, and the
+``"dct"`` wire, which exists for the TPU host link; this renderer streams
+YUV420 whatever ``RenderConfig.wire_format`` says.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from text2video_tpu.config import RenderConfig
+from text2video_tpu_torch.models.generator import CompositeGenerator
+from text2video_tpu_torch.ops.colorspace import rgb_norm_to_yuv420
+
+Carry = Tuple[torch.Tensor, torch.Tensor, int]
+
+
+def resize_labels(labels: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """[..., H, W, 3] f32 -> [..., height, width, 3], bilinear with
+    antialiasing (``jax.image.resize(..., "linear")`` antialiases when it
+    downscales)."""
+    lead = labels.shape[:-3]
+    x = labels.reshape(-1, *labels.shape[-3:]).permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=(height, width), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return x.permute(0, 2, 3, 1).reshape(*lead, height, width, 3)
+
+
+def _to_host_async(t: torch.Tensor):
+    """Start a device->host copy; returns (host tensor, event or None)."""
+    if t.device.type == "cpu":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+@dataclasses.dataclass
+class Renderer:
+    """A generator (on its device, in its compute dtype) and the chunked
+    autoregressive render loop around it."""
+
+    generator: CompositeGenerator
+    config: RenderConfig = dataclasses.field(default_factory=RenderConfig)
+    # Frames per chunk; also the rasterizer's chunk in the pipeline.
+    time_bucket: int = 64
+
+    @staticmethod
+    def create(
+        config: Optional[RenderConfig] = None,
+        seed: int = 0,
+        base_ch: int = 64,
+        n_blocks: int = 9,
+        dtype: torch.dtype = torch.bfloat16,
+        device="cpu",
+    ) -> "Renderer":
+        """Renderer with seeded random weights (trained weights come from a
+        converted checkpoint, ``convert.py``)."""
+        config = config or RenderConfig()
+        gen = CompositeGenerator(
+            in_channels=3 * (config.n_frames_ctx + config.use_prev_frames),
+            base_ch=base_ch, n_blocks=n_blocks, dtype=dtype,
+        )
+        gen.reset_parameters(torch.Generator().manual_seed(seed))
+        return Renderer(generator=gen.to(device).eval(), config=config)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.generator.parameters()).device
+
+    def init_carry(self, batch: int, height: int, width: int) -> Carry:
+        """(prev_imgs, prev_labels, step) for a fresh utterance, in the
+        generator's compute dtype."""
+        cfg = self.config
+        dt = self.generator.dtype
+
+        def zeros(ch):
+            return torch.zeros((batch, height, width, ch), dtype=dt,
+                               device=self.device)
+
+        return (zeros(3 * cfg.use_prev_frames),
+                zeros(3 * (cfg.n_frames_ctx - 1)), 0)
+
+    def target_hw(self, h: int, w: int) -> Tuple[int, int]:
+        """Working resolution for an (h, w) canvas: height scaled to
+        config.load_size (multiples of 64), or the canvas itself."""
+        ls = self.config.load_size
+        if ls is None or h == ls:
+            return h, w
+        h2 = max(round(ls / 64) * 64, 64)
+        w2 = max(round(w * h2 / h / 64) * 64, 64)
+        return h2, w2
+
+    @torch.inference_mode()
+    def _scan_chunk(self, labels: torch.Tensor,
+                    carry: Carry) -> Tuple[torch.Tensor, Carry]:
+        """labels [B, chunk, H, W, 3] in [-1, 1] -> (frames [B, chunk, H',
+        W', 3] in the compute dtype, carry). The label context (current +
+        n_frames_ctx - 1 previous maps) is assembled for the whole chunk
+        first; frames before the chunk come from the carry."""
+        b, c, h, w, _ = labels.shape
+        h2, w2 = self.target_hw(h, w)
+        labels = labels.float()
+        if (h2, w2) != (h, w):
+            labels = resize_labels(labels, h2, w2)
+        prev_imgs, prev_labels, step = carry
+        dt = self.generator.dtype
+        lab_t = labels.transpose(0, 1).to(dt)  # [C, B, H', W', 3]
+        n_ctx = self.config.n_frames_ctx
+        if c < n_ctx - 1:
+            raise ValueError(
+                f"chunk of {c} frames < n_frames_ctx-1 ({n_ctx - 1})")
+        ctx = [lab_t]
+        for k in range(1, n_ctx):
+            # shifted_k[i] = label of frame i-k; prev_labels[..., 3m:3m+3]
+            # holds frame -1-m.
+            head = [prev_labels[None, ..., 3 * (k - i - 1): 3 * (k - i)]
+                    for i in range(k)]
+            ctx.append(torch.cat(head + [lab_t[: c - k]], dim=0))
+        labels_ctx_t = torch.cat(ctx, dim=-1)
+
+        prev = prev_imgs.to(dt)
+        frames = []
+        for i in range(c):
+            has_prev = torch.full((b,), float(step + i > 0),
+                                  device=labels.device)
+            frame, _, _ = self.generator(labels_ctx_t[i], prev, has_prev)
+            frame = frame.to(dt)
+            prev = torch.cat([frame, prev[..., :-3]], dim=-1)
+            frames.append(frame)
+        new_prev_labels = torch.cat(
+            [lab_t[c - 1 - m] for m in range(n_ctx - 1)], dim=-1)
+        return torch.stack(frames, dim=1), (prev, new_prev_labels, step + c)
+
+    def _render_chunk(self, labels: torch.Tensor,
+                      carry: Carry) -> Tuple[torch.Tensor, Carry]:
+        frames, carry = self._scan_chunk(labels, carry)
+        # Quantize in f32 (a bf16 ulp at 255 is 1); the cast truncates.
+        frames_u8 = torch.clamp((frames.float() + 1.0) * 127.5, 0.0,
+                                255.0).to(torch.uint8)
+        return frames_u8, carry
+
+    def generate_device(self, labels_norm: torch.Tensor) -> List[torch.Tensor]:
+        """[B, T, H, W, 3] labels in [-1, 1] -> list of [B, time_bucket, H',
+        W', 3] uint8 device tensors (the last chunk padded)."""
+        b, t, h, w, _ = labels_norm.shape
+        carry = self.init_carry(b, *self.target_hw(h, w))
+        chunks = []
+        for lo in range(0, t, self.time_bucket):
+            chunk = labels_norm[:, lo: lo + self.time_bucket]
+            pad = self.time_bucket - chunk.shape[1]
+            if pad:
+                chunk = F.pad(chunk, (0, 0, 0, 0, 0, 0, 0, pad))
+            frames_u8, carry = self._render_chunk(chunk, carry)
+            chunks.append(frames_u8)
+        return chunks
+
+    def render(self, labels_u8: np.ndarray) -> np.ndarray:
+        """[T, H, W, 3] uint8 label maps -> [T, H', W', 3] uint8 frames."""
+        t = min(labels_u8.shape[0], self.config.max_frames)
+        labels = torch.as_tensor(labels_u8[None, :t], device=self.device)
+        chunks = self.generate_device(labels.float() / 127.5 - 1.0)
+        host = [c[0].cpu().numpy() for c in chunks]
+        return np.concatenate(host, axis=0)[:t]
+
+    def render_from_device_chunks(self, label_chunks, t: int) -> np.ndarray:
+        """On-device uint8 label chunks ([time_bucket, H, W, 3] each, the
+        rasterizer's ``to_host=False`` output) -> [t, H', W', 3] uint8 host
+        frames. Labels never go through the host."""
+        label_chunks = self._normalize_chunks(label_chunks)
+        h, w = label_chunks[0].shape[1:3]
+        carry = self.init_carry(1, *self.target_hw(h, w))
+        outs = []
+        done = 0
+        for chunk in label_chunks:
+            if done >= self.config.max_frames:
+                break
+            labels = chunk.float()[None] / 127.5 - 1.0
+            frames_u8, carry = self._render_chunk(labels, carry)
+            outs.append(frames_u8)
+            done += chunk.shape[0]
+        t = min(t, self.config.max_frames, done)
+        host = [c[0].cpu().numpy() for c in outs]
+        return np.concatenate(host, axis=0)[:t]
+
+    def _normalize_chunks(self, label_chunks) -> List[torch.Tensor]:
+        """Make every chunk at least n_frames_ctx-1 frames long for the
+        chunk-wide label-context assembly. A short final chunk is
+        zero-padded (its pad frames are dropped by the caller's ``t``); a
+        short chunk mid-stream re-slices the whole timeline into uniform
+        time_bucket chunks, which keeps the scan exact."""
+        min_len = self.config.n_frames_ctx - 1
+        chunks = list(label_chunks)
+        if not chunks:
+            raise ValueError("no label chunks")
+        if all(c.shape[0] >= min_len for c in chunks[:-1]):
+            last = chunks[-1]
+            if last.shape[0] < min_len:
+                chunks[-1] = F.pad(
+                    last, (0, 0, 0, 0, 0, 0, 0, min_len - last.shape[0]))
+            return chunks
+        flat = torch.cat(chunks, dim=0)
+        bucket = max(self.time_bucket, min_len)
+        pad = (-flat.shape[0]) % bucket
+        if pad:
+            flat = F.pad(flat, (0, 0, 0, 0, 0, 0, 0, pad))
+        return [flat[lo: lo + bucket] for lo in range(0, flat.shape[0], bucket)]
+
+    def render_stream_yuv(
+        self, label_chunks, t: int, timer=None
+    ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Stream-render on-device uint8 label chunks to host YUV420 planes:
+        yields (y [n, H', W'], u [n, H'/2, W'/2], v [n, H'/2, W'/2]) uint8
+        arrays, the n summing to ``t``.
+
+        Always the ``"yuv420"`` wire, whatever ``config.wire_format`` says.
+        Chunk i's planes are copied to pinned host memory asynchronously
+        while chunk i+1 is rendered, and handed out only after that, so the
+        copy and the consumer overlap the next chunk's compute. ``timer``
+        (a StageTimer) records the wait in ``render_pull``."""
+        def span(name):
+            return timer.stage(name) if timer else contextlib.nullcontext()
+
+        chunks = self._normalize_chunks(label_chunks)
+        rem = min(t, self.config.max_frames)
+        carry = self.init_carry(1, *self.target_hw(*chunks[0].shape[1:3]))
+        pending = None
+        for chunk in chunks:
+            if rem <= 0:
+                break
+            n = min(chunk.shape[0], rem)
+            rem -= n
+            labels = chunk.float()[None] / 127.5 - 1.0
+            frames, carry = self._scan_chunk(labels, carry)
+            planes = [p[:n] for p in rgb_norm_to_yuv420(frames[0])]
+            copies = [_to_host_async(p) for p in planes]
+            if pending is not None:
+                yield self._wait_host(pending, span)
+            pending = copies
+        if pending is not None:
+            yield self._wait_host(pending, span)
+
+    @staticmethod
+    def _wait_host(copies, span):
+        with span("render_pull"):
+            for _, event in copies:
+                if event is not None:
+                    event.synchronize()
+        return tuple(host.numpy() for host, _ in copies)
