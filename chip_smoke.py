@@ -12,11 +12,16 @@ frames): ``Text2VideoPipeline.synthesize`` with the fused pose op, the
 device rasterizer, the autoregressive renderer and the muxer.
 
 Prints one line per phase, then a JSON line with each kernel's launches on
-the serving path, its error against the plain version and both times, then
-the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
-non-zero and the last line is not printed. Needs a CUDA device; the checks
-do not fall back to the CPU.
+the serving path, its error against the plain version, its time beside the
+plain version's, a library call's (where one computes the same function)
+and its bound (the least time the card could take: bytes over 3.35 TB/s or
+operations over 989 TFLOP/s bf16, NVIDIA's H100 SXM data sheet), then the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Kernel times are device times: the calls are captured in a CUDA graph and
+replayed, so the Python wrappers' host time is not counted. Any failure
+raises: the exit code is non-zero and the last line is not printed. Needs a
+CUDA device; the checks do not fall back to the CPU. Imports nothing of JAX
+and nothing of the JAX package ``text2video_tpu``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -31,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 B1_SHAPES = [  # (shape, kernel scale or None for lecun)
     ((1, 48, 64, 512), None),   # the scan at 512x384 (batch 1)
@@ -41,6 +48,9 @@ B1_SHAPES = [  # (shape, kernel scale or None for lecun)
     ((1, 4, 16, 128), 0.05),
 ]
 B1_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+PEAK_BF16 = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
+PEAK_F32 = 67e12      # H100 SXM f32 outside the tensor cores, FLOP/s
 B2_TOL = 2e-3
 GEN_TOL = 1e-3
 N_FRAMES = 256  # ~10 s at 25 fps
@@ -52,20 +62,57 @@ def phase(name: str, **fields) -> None:
           flush=True)
 
 
-def median_ms(fn, reps: int = 20) -> float:
-    """Median device time of ``fn`` over ``reps`` calls, CUDA events."""
-    for _ in range(3):
-        fn()
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in a CUDA
+    graph, replayed ``reps`` times between CUDA events; the median replay
+    over ``calls``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def ptxas_lines(log: str) -> list:
+    """``kernel: registers, barriers, smem; stack, spills`` per kernel of an
+    ``nvcc -Xptxas -v`` log (empty for a reused build)."""
+    out, name, frame = [], "?", ""
+    for ln in log.splitlines():
+        # ..._cu_<8 hex><length><name>[ILi<N>E]...: the mangled name
+        m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", ln)
+        if "Compiling entry function" in ln and m:
+            n = int(m.group(1))
+            name, rest = m.group(2)[:n], m.group(2)[n:]
+            t = re.match(r"I((?:Li\d+E)+)E", rest)
+            if t:
+                name += f"<{', '.join(re.findall(r'Li(\d+)E', t.group(1)))}>"
+        elif "stack frame" in ln:
+            frame = ln.strip()
+        elif "registers" in ln:
+            out.append(f"{name}: {ln.split('Used ')[-1].strip()}; {frame}")
+    return out
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops: float):
+    """(bound ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check(ok: bool, what: str) -> None:
@@ -88,24 +135,23 @@ def main() -> None:
     t0 = time.perf_counter()
     lib_path, log = kernels.build()
     kernels.library()
-    regs = [ln.split("info    : ")[-1] for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
     phase("build", seconds=round(time.perf_counter() - t0, 3),
-          lib=os.path.relpath(lib_path), ptxas=json.dumps(regs))
+          lib=os.path.relpath(lib_path), ptxas=json.dumps(ptxas_lines(log)))
 
     from text2video_tpu_torch.ops import fused_pose, fused_resblock
 
     # ---- 2. B1 against its plain version -------------------------------------
     gen = torch.Generator().manual_seed(0)
-    b1_err = b1_ms = b1_plain_ms = None
+    b1 = {}
     for shape, kscale in B1_SHAPES:
         c = shape[-1]
         x32 = torch.randn(shape, generator=gen).to(dev)
         scale = kscale if kscale else (1.0 / (9 * c)) ** 0.5
-        k = (torch.randn((3, 3, c, c), generator=gen) * scale).to(dev)
+        k32 = (torch.randn((3, 3, c, c), generator=gen) * scale).to(dev)
         b = torch.randn((c,), generator=gen).to(dev)
         for dt in (torch.float32, torch.bfloat16):
-            x = x32.to(dt)
+            # The layers hand the kernel its weights in the compute dtype.
+            x, k = x32.to(dt), k32.to(dt)
             y, mean, var = fused_resblock.conv3x3_stats(x, k, b)
             y0, mean0, var0 = fused_resblock.conv3x3_stats_plain(x, k, b)
             torch.cuda.synchronize()
@@ -117,21 +163,49 @@ def main() -> None:
             fields = dict(shape=list(shape), dtype=str(dt).split(".")[-1],
                           err_y_mean_var=errs)
             if c == 512:
-                ms = median_ms(lambda: fused_resblock.conv3x3_stats(x, k, b))
-                plain_ms = median_ms(
+                npx = shape[0] * shape[1] * shape[2]
+                esz = x.element_size()
+                # x, k and bias read once; y, mean and var written once.
+                bound_ms, bound_by = bound(
+                    2 * npx * c * esz + 9 * c * c * esz + 4 * c
+                    + 2 * 4 * shape[0] * c,
+                    2.0 * npx * c * 9 * c,
+                    PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
+                ms = graph_ms(lambda: fused_resblock.conv3x3_stats(x, k, b))
+                plain_ms = graph_ms(
                     lambda: fused_resblock.conv3x3_stats_plain(x, k, b))
-                fields.update(ms=ms, plain_ms=plain_ms)
-                if shape[0] == 1 and dt == torch.bfloat16:
-                    b1_err, b1_ms, b1_plain_ms = errs[0], ms, plain_ms
+                # Yardstick, never called by the port: cuDNN's conv of the
+                # same shape, channels-last, zero padding, no statistics.
+                xc = x.permute(0, 3, 1, 2)
+                wc = k.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                library_ms = graph_ms(lambda: F.conv2d(xc, wc, padding=1))
+                fields.update(ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, bound_share=bound_ms / ms)
+                if dt == torch.bfloat16 and shape[0] == 1:
+                    b1 = dict(max_abs_err=errs[0], ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=library_ms)
+                    # The wrapper's host time a call, which the frame
+                    # loop pays 18 times a frame: 200 calls queued
+                    # without a sync (the card keeps up with them).
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(200):
+                        fused_resblock.conv3x3_stats(x, k, b)
+                    fields["wrapper_host_us"] = (
+                        time.perf_counter() - t0) / 200 * 1e6
+                    torch.cuda.synchronize()
             phase("B1", **fields)
 
     # ---- 3. B2 against its plain version and the host smoother ---------------
     from text2video_tpu_torch.golden import golden_pose_inputs
-    from text2video_tpu_torch.pose_stage import (
+    from text2video_tpu_torch.ops.interp import (
         plan_pose_track,
-        smooth_host,
         synthesize_host,
     )
+    from text2video_tpu_torch.ops.smooth import smooth_host
 
     profile, pdict, table, ts = golden_pose_inputs(n_frames=N_FRAMES)
     plan = plan_pose_track(ts, pdict, table, profile)
@@ -150,11 +224,20 @@ def main() -> None:
                    np.abs(pose.cpu().numpy() - ref_p).max())
     check(b2_err <= B2_TOL and host_err <= B2_TOL,
           f"B2: error {b2_err} vs plain, {host_err} vs smooth_host")
-    b2_ms = median_ms(lambda: fused_pose.blend_and_smooth(*args, sw))
-    b2_plain_ms = median_ms(lambda: fused_pose.blend_and_smooth_plain(*args, sw))
-    phase("B2", frames=plan.num_frames, table_rows=len(table),
+    b2_ms = graph_ms(lambda: fused_pose.blend_and_smooth(*args, sw))
+    b2_plain_ms = graph_ms(
+        lambda: fused_pose.blend_and_smooth_plain(*args, sw), calls=2)
+    # Bytes: the table rows this plan reads, the plan, the two outputs.
+    # Operations: a blend (3 flops) and a 2 sw-tap window (4 sw + 4) per
+    # value, far below the bytes' time.
+    t_len, width = plan.num_frames, fused_pose.FACE_D + fused_pose.POSE_D
+    rows = len(np.union1d(plan.i1, plan.i2))
+    b2_bound_ms, b2_bound_by = bound(
+        4 * (rows * width + 3 * t_len + t_len * width),
+        t_len * width * (7 + 4 * sw), PEAK_F32)
+    phase("B2", frames=t_len, table_rows=len(table), rows_read=rows,
           err_vs_plain=b2_err, err_vs_smooth_host=float(host_err), ms=b2_ms,
-          plain_ms=b2_plain_ms)
+          plain_ms=b2_plain_ms, bound_ms=b2_bound_ms, bound_by=b2_bound_by)
 
     # ---- 4. one full-width f32 generator forward, kernel vs plain ------------
     from text2video_tpu_torch.render import Renderer
@@ -190,7 +273,9 @@ def main() -> None:
     port_stage = pipeline.PoseStage
     pipeline.PoseStage = (
         lambda prof, device="cpu": port_stage(prof, pdict, table, device))
-    renderer = Renderer.create(seed=0, dtype=torch.bfloat16, device=dev)
+    # The serving renderer is made as a user makes it: on the card by default.
+    renderer = Renderer.create(seed=0, dtype=torch.bfloat16)
+    check(renderer.device.type == "cuda", f"renderer on {renderer.device}")
     renderer.time_bucket = CHUNK
     rng = np.random.RandomState(0)
     audio = (0.1 * np.sin(np.arange(int(16000 * N_FRAMES / profile.fps))
@@ -215,7 +300,8 @@ def main() -> None:
                   table.hands[res.plan.carrier[:8], 0],
                   table.hands[res.plan.carrier[:8], 1])
         label_diff = np.abs(
-            rasterize_batch(*tracks, (512, 384), chunk=8).astype(int)
+            rasterize_batch(*tracks, (512, 384), chunk=8,
+                            device="cpu").astype(int)
             - rasterize_batch(*tracks, (512, 384), chunk=8,
                               device=dev).astype(int)).max()
         check(label_diff == 0, f"device labels differ from CPU by {label_diff}")
@@ -248,32 +334,61 @@ def main() -> None:
               stage_seconds=json.dumps(run.stage_seconds), files=files,
               label_diff_vs_cpu=int(label_diff))
 
-    # Warm generation rate at batch 1 (the renderer alone, 256 frames).
+    # Warm generation rate at batch 1 (the renderer alone, 256 frames), three
+    # times: the host's share of a frame varies from run to run.
     labels = (torch.from_numpy(warm.label_maps).to(dev)[None].float()
               / 127.5 - 1.0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    chunks = renderer.generate_device(labels)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    check(len(chunks) == N_FRAMES // CHUNK, "generate_device chunks")
-    phase("generate", frames=N_FRAMES, seconds=gen_s,
-          fps=N_FRAMES / gen_s, peak_mem_gib=torch.cuda.max_memory_allocated()
-          / 2**30)
-    check("jax" not in sys.modules, "jax was imported")
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks = renderer.generate_device(labels)
+        torch.cuda.synchronize()
+        rates.append(N_FRAMES / (time.perf_counter() - t0))
+        check(len(chunks) == N_FRAMES // CHUNK, "generate_device chunks")
+    phase("generate", frames=N_FRAMES, fps=float(np.median(rates)),
+          fps_runs=rates,
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    # Where the device time of a frame goes: one warm chunk under the
+    # profiler (which slows the host, so its wall clock is not the rate).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        renderer.generate_device(labels[:, :CHUNK])
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    check(by_name, "the profiler saw no device time")
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    phase("profile", frames=CHUNK, device_ms_per_frame=busy / CHUNK,
+          kernels_per_frame=sum(n for _, n in by_name.values()) / CHUNK,
+          top_ms_launches_per_frame=json.dumps(
+              {name[:60]: [ms / CHUNK, n / CHUNK] for name, (ms, n) in top}))
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "text2video_tpu"))
+    check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
     # ---- 6. the card, 7. the result -----------------------------------------
     print(json.dumps({"kernels": [
         {"name": "conv3x3_stats", "route": "cuda",
          "source": "text2video_tpu_torch/csrc/conv3x3_stats.cu",
          "replaces": "text2video_tpu/ops/fused_resblock.py:64",
-         "launches": launches["conv3x3_stats"], "max_abs_err": b1_err,
-         "ms": b1_ms, "plain_ms": b1_plain_ms},
+         "launches": launches["conv3x3_stats"],
+         "launches_per_frame": launches["conv3x3_stats"] / N_FRAMES, **b1},
         {"name": "synthesize_and_smooth", "route": "cuda",
          "source": "text2video_tpu_torch/csrc/fused_pose.cu",
          "replaces": "text2video_tpu/ops/fused_pose.py:46",
-         "launches": launches["synthesize_and_smooth"], "max_abs_err": b2_err,
-         "ms": b2_ms, "plain_ms": b2_plain_ms},
+         "launches": launches["synthesize_and_smooth"],
+         "launches_per_frame": launches["synthesize_and_smooth"] / N_FRAMES,
+         "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms,
+         "bound_ms": b2_bound_ms, "bound_by": b2_bound_by,
+         "library_ms": None},
     ]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,6 +1,7 @@
-"""The port imports and runs without JAX: every submodule imports, and the
-plain slice (pose stage -> rasterizer -> renderer -> mux) runs at a tiny
-size, in a child process where importing jax, flax or optax fails."""
+"""The port imports and runs without JAX and without the JAX package: every
+submodule imports, and the plain slice (pose stage -> rasterizer -> renderer
+-> mux) runs at a tiny size, in a child process where importing jax, flax,
+optax or text2video_tpu fails."""
 
 import os
 import subprocess
@@ -12,7 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent(
     """
     import sys
-    for name in ("jax", "jaxlib", "flax", "optax"):
+    for name in ("jax", "jaxlib", "flax", "optax", "text2video_tpu"):
         sys.modules[name] = None  # any import of them raises ImportError
 
     import importlib, pkgutil, tempfile
@@ -26,8 +27,8 @@ SCRIPT = textwrap.dedent(
     for name in mods:
         importlib.import_module(name)
 
-    from text2video_tpu.config import PipelineConfig, RenderConfig
     from text2video_tpu_torch import pipeline
+    from text2video_tpu_torch.config import PipelineConfig, RenderConfig
     from text2video_tpu_torch.golden import golden_pose_inputs
     from text2video_tpu_torch.render import Renderer
 
@@ -36,7 +37,7 @@ SCRIPT = textwrap.dedent(
     pipeline.PoseStage = (
         lambda p, device="cpu": port_stage(p, pdict, table, device))
     renderer = Renderer.create(config=RenderConfig(load_size=64), base_ch=8,
-                               n_blocks=1, dtype=torch.float32)
+                               n_blocks=1, dtype=torch.float32, device="cpu")
     renderer.time_bucket = 4
     with tempfile.TemporaryDirectory() as tmp:
         cfg = PipelineConfig(person=profile, out_dir=tmp, stream=False,
@@ -45,8 +46,8 @@ SCRIPT = textwrap.dedent(
             ts, "utt", keep_arrays=True)
     assert run.frames.shape == (6, 64, 64, 3), run.frames.shape
     assert run.frames.std() > 0
-    loaded = [k for k, v in sys.modules.items()
-              if v is not None and k.split(".")[0] in ("jax", "flax", "optax")]
+    loaded = [k for k, v in sys.modules.items() if v is not None
+              and k.split(".")[0] in ("jax", "flax", "optax", "text2video_tpu")]
     assert not loaded, loaded
     print("NOJAX_OK", len(mods))
     """

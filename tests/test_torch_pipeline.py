@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from text2video_tpu.config import PipelineConfig, RenderConfig
+from text2video_tpu import config as jconfig
+from text2video_tpu_torch import config as tconfig
 from text2video_tpu_torch import pipeline as tpipe
 from text2video_tpu_torch.convert import params_from_flax
 from text2video_tpu_torch.golden import golden_pose_inputs
@@ -46,16 +47,16 @@ def _renderers():
     from text2video_tpu.models.generator import CompositeGenerator
     from text2video_tpu.render import Renderer as JaxRenderer
 
-    cfg = RenderConfig()
     gen = CompositeGenerator(base_ch=8, n_blocks=1, dtype=jnp.float32)
     params = jax.jit(gen.init)(jax.random.PRNGKey(0),
                                jnp.zeros((1, 384, 512, 9)),
                                jnp.zeros((1, 384, 512, 6)), jnp.ones((1,)))
     params = jax.tree_util.tree_map(np.array, params)
     params["params"]["heads"]["kernel"] *= 0.1  # see test_torch_generator
-    jr = JaxRenderer(generator=gen, params=params, config=cfg, time_bucket=T)
-    tr = Renderer.create(config=cfg, base_ch=8, n_blocks=1,
-                         dtype=torch.float32)
+    jr = JaxRenderer(generator=gen, params=params,
+                     config=jconfig.RenderConfig(), time_bucket=T)
+    tr = Renderer.create(config=tconfig.RenderConfig(), base_ch=8, n_blocks=1,
+                         dtype=torch.float32, device="cpu")
     tr.generator.load_state_dict(params_from_flax(params), strict=True)
     tr.time_bucket = T
     return jr, tr
@@ -69,11 +70,11 @@ def test_synthesize_matches_jax(monkeypatch, tmp_path, pose_inputs):
     jr, tr = _renderers()
     audio = np.zeros(int(16000 * T / profile.fps), np.float32)
 
-    def cfg(sub, **kw):
-        return PipelineConfig(person=profile, out_dir=str(tmp_path / sub),
-                              stream=False, **kw)
+    def cfg(sub, mod=tconfig):
+        return mod.PipelineConfig(person=profile, out_dir=str(tmp_path / sub),
+                                  stream=False)
 
-    ref = JaxPipeline(cfg("jax"), renderer=jr).synthesize(
+    ref = JaxPipeline(cfg("jax", jconfig), renderer=jr).synthesize(
         ts, "utt", audio=audio, keep_arrays=True)
     out = tpipe.Text2VideoPipeline(cfg("torch"), renderer=tr).synthesize(
         ts, "utt", audio=audio, keep_arrays=True)
@@ -110,12 +111,13 @@ def test_skeleton_passthrough_matches_jax(monkeypatch, tmp_path, pose_inputs):
     _patch_pose_stages(monkeypatch, pose_inputs)
     profile, _, _, ts = pose_inputs
 
-    def cfg(sub):
-        return PipelineConfig(person=profile, out_dir=str(tmp_path / sub),
-                              frame_chunk=T)
+    def cfg(sub, mod=tconfig):
+        return mod.PipelineConfig(person=profile, out_dir=str(tmp_path / sub),
+                                  frame_chunk=T)
 
-    ref = JaxPipeline(cfg("jax")).synthesize(ts, "utt", keep_arrays=True)
-    out = tpipe.Text2VideoPipeline(cfg("torch")).synthesize(
+    ref = JaxPipeline(cfg("jax", jconfig)).synthesize(ts, "utt",
+                                                      keep_arrays=True)
+    out = tpipe.Text2VideoPipeline(cfg("torch"), device="cpu").synthesize(
         ts, "utt", keep_arrays=True)
     np.testing.assert_array_equal(out.label_maps, ref.label_maps)
     np.testing.assert_array_equal(out.frames, out.label_maps)

@@ -32,7 +32,8 @@ def test_synthesize_and_smooth_matches_host(inputs):
     ref_f, ref_p = smooth_host(*synthesize_host(plan, table),
                                profile.smooth_width)
     before = tfp.launches
-    face, pose = tfp.synthesize_and_smooth(plan, table, profile.smooth_width)
+    face, pose = tfp.synthesize_and_smooth(plan, table, profile.smooth_width,
+                                           device="cpu")
     assert tfp.launches == before  # CPU tensors take the plain version
     assert face.shape == (200, 210) and pose.shape == (200, 75)
     np.testing.assert_allclose(face.numpy(), ref_f, atol=2e-3, rtol=0)
@@ -40,12 +41,16 @@ def test_synthesize_and_smooth_matches_host(inputs):
 
 
 def test_synthesize_and_smooth_matches_jax_pallas(inputs):
+    from text2video_tpu.io.dicts import KeypointTable as JaxTable
     from text2video_tpu.ops.fused_pose import synthesize_and_smooth_pallas
 
     profile, _, table, _, plan = inputs
-    ref_f, ref_p = synthesize_and_smooth_pallas(plan, table,
+    jtable = JaxTable(table.face, table.pose, table.hands, table.has_hands,
+                      table.raws, table._index)
+    ref_f, ref_p = synthesize_and_smooth_pallas(plan, jtable,
                                                 profile.smooth_width)
-    face, pose = tfp.synthesize_and_smooth(plan, table, profile.smooth_width)
+    face, pose = tfp.synthesize_and_smooth(plan, table, profile.smooth_width,
+                                           device="cpu")
     # Coordinates reach ~500 px, where one f32 ulp is 3e-5, and the two
     # sides round differently (XLA fuses the blend and the window sum into
     # FMAs): 1e-5 plus 1e-6 of the value, i.e. a few ulps.
@@ -59,13 +64,14 @@ def test_synthesize_and_smooth_rejects_bad_rows(inputs):
                      carrier=plan.carrier, verbatim=plan.verbatim)
     bad.i1[3] = len(table)
     with pytest.raises(IndexError):
-        tfp.synthesize_and_smooth(bad, table, profile.smooth_width)
+        tfp.synthesize_and_smooth(bad, table, profile.smooth_width,
+                                  device="cpu")
 
 
 @pytest.mark.parametrize("device", [False, True])
 def test_pose_stage_run(inputs, device):
     profile, pdict, table, ts, plan = inputs
-    stage = PoseStage(profile, pdict, table)
+    stage = PoseStage(profile, pdict, table, device="cpu")
     res = stage.run(ts, device=device)
     face, pose = synthesize_host(plan, table)
     ref_f, ref_p = smooth_host(face, pose, profile.smooth_width)

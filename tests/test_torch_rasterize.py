@@ -17,7 +17,8 @@ def test_rasterize_golden_frames_exact():
     table = golden_table()
     args = (table.face, table.pose, table.hands[:, 0], table.hands[:, 1])
     ref = rasterize_batch(*args, (512, 384), chunk=32)
-    chunks = trast.rasterize_batch(*args, (512, 384), chunk=32, to_host=False)
+    chunks = trast.rasterize_batch(*args, (512, 384), chunk=32, to_host=False,
+                                   device="cpu")
     assert [tuple(c.shape) for c in chunks] == [(32, 384, 512, 3)] * 3
     out = torch.cat(chunks).numpy()
     assert out.dtype == np.uint8
@@ -34,7 +35,7 @@ def test_rasterize_zero_keypoints_corner_circles():
     args = (np.zeros((t, 210)), np.zeros((t, 75)), np.zeros((t, 63)),
             np.zeros((t, 63)))
     ref = rasterize_batch(*args, (64, 48), chunk=4)
-    out = trast.rasterize_batch(*args, (64, 48), chunk=4)
+    out = trast.rasterize_batch(*args, (64, 48), chunk=4, device="cpu")
     np.testing.assert_array_equal(out, ref)
     drawn = out.any(axis=-1)
     assert drawn[:, :6, :6].all() and not drawn[:, 9:, :].any()

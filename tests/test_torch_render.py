@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from text2video_tpu.config import RenderConfig
+from text2video_tpu import config as jconfig
+from text2video_tpu_torch import config as tconfig
 from text2video_tpu_torch.convert import params_from_flax
 from text2video_tpu_torch.render import Renderer, resize_labels
 
@@ -23,7 +24,6 @@ def renderers():
     from text2video_tpu.models.generator import CompositeGenerator
     from text2video_tpu.render import Renderer as JaxRenderer
 
-    cfg = RenderConfig(wire_format="yuv420")
     gen = CompositeGenerator(base_ch=8, n_blocks=1, dtype=jnp.float32)
     params = jax.jit(gen.init)(jax.random.PRNGKey(0), jnp.zeros((1, H, W, 9)),
                                jnp.zeros((1, H, W, 6)), jnp.ones((1,)))
@@ -31,10 +31,12 @@ def renderers():
     # A tenth of the lecun heads keeps flows at a few pixels (see
     # test_torch_generator.py).
     params["params"]["heads"]["kernel"] *= 0.1
-    jr = JaxRenderer(generator=gen, params=params, config=cfg,
+    jr = JaxRenderer(generator=gen, params=params,
+                     config=jconfig.RenderConfig(wire_format="yuv420"),
                      time_bucket=BUCKET)
-    tr = Renderer.create(config=cfg, base_ch=8, n_blocks=1,
-                         dtype=torch.float32)
+    tr = Renderer.create(config=tconfig.RenderConfig(wire_format="yuv420"),
+                         base_ch=8, n_blocks=1, dtype=torch.float32,
+                         device="cpu")
     tr.generator.load_state_dict(params_from_flax(params), strict=True)
     tr.time_bucket = BUCKET
     return jr, tr

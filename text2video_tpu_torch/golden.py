@@ -15,10 +15,10 @@ from typing import Tuple
 
 import numpy as np
 
-from text2video_tpu.config import PersonProfile, get_profile
-from text2video_tpu.frontend.timestamps import Timestamps
-from text2video_tpu.io.dicts import KeypointTable, PoseDictionary
-from text2video_tpu.io.openpose import frame_from_raw, load_keypoint_json
+from text2video_tpu_torch.config import PersonProfile, get_profile
+from text2video_tpu_torch.frontend.timestamps import Timestamps
+from text2video_tpu_torch.io.dicts import KeypointTable, PoseDictionary
+from text2video_tpu_torch.io.openpose import frame_from_raw, load_keypoint_json
 
 GOLDEN_POSE_DIR = (
     Path(__file__).resolve().parent.parent

@@ -68,7 +68,9 @@ def build() -> Tuple[Path, str]:
     )
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log[-6000:]}")
+        errors = "\n".join(ln for ln in log.splitlines() if "error" in ln)
+        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
+                           f"{errors[:4000]}\n...\n{log[-2000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     (out_dir / "build.log").write_text(log)
     return lib, log
@@ -81,9 +83,9 @@ def library() -> ctypes.CDLL:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.t2v_conv3x3_block_m.argtypes = [i32]
-        lib.t2v_conv3x3_block_m.restype = i32
-        lib.t2v_conv3x3_stats.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+        lib.t2v_conv3x3_tiles.argtypes = [i32] * 3
+        lib.t2v_conv3x3_tiles.restype = i32
+        lib.t2v_conv3x3_stats.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         lib.t2v_conv3x3_stats.restype = i32
         lib.t2v_synthesize_and_smooth.argtypes = [ptr] * 7 + [i32] * 2 + [ptr]
         lib.t2v_synthesize_and_smooth.restype = i32

@@ -4,14 +4,17 @@ Counterpart of ``text2video_tpu/models/layers.py`` (plain forms only; the
 TPU phase forms are not ported). Public tensors are NHWC, as in the JAX
 package. Parameters keep the flax layout and dtype — conv kernels HWIO
 ``[k, k, cin, cout]`` float32 under ``kernel``, biases under ``bias``,
-instance-norm ``scale``/``bias`` — and are cast to the compute dtype at
-use, so a converted flax tree (``convert.py``) loads without transposes.
+instance-norm ``scale``/``bias`` — so a converted flax tree
+(``convert.py``) loads without transposes. Each conv keeps a packed copy of
+its kernel and bias in the compute dtype, made once and remade only when a
+parameter changes, not cast on every call. The copies are detached: the
+port serves, it does not train.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +25,31 @@ from text2video_tpu_torch.ops import fused_resblock
 # flax's lecun_normal draws from a normal truncated at +-2 std and rescales
 # by this constant so the kept samples have the nominal variance.
 _TRUNC_STD = 0.87962566103423978
+
+
+class ParamCopy:
+    """A tensor made from parameters, remade only when one of them changes.
+
+    Keyed on each parameter's ``data_ptr()`` and ``_version``: moving a
+    module changes the first, and ``load_state_dict`` (which copies in
+    place) bumps the second. Parameters made under ``inference_mode`` keep
+    no version counter; their copy is made anew on every call."""
+
+    def __init__(self, make: Callable[..., object]):
+        self.make = make
+        self.key = None
+        self.value = None
+
+    def get(self, *params: torch.Tensor):
+        if any(p.is_inference() for p in params):
+            with torch.no_grad():
+                return self.make(*(p.detach() for p in params))
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        if key != self.key:
+            with torch.no_grad():
+                self.value = self.make(*(p.detach() for p in params))
+            self.key = key
+        return self.value
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -43,6 +71,11 @@ class Conv(nn.Module):
         self.kernel = nn.Parameter(
             torch.zeros(kernel, kernel, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
+        # F.conv2d's OIHW kernel and the bias, in the compute dtype.
+        self._packed = ParamCopy(lambda k, b: (
+            k.to(dtype).permute(3, 2, 0, 1).contiguous(), b.to(dtype)))
+        # The fused op's HWIO kernel in the compute dtype.
+        self._hwio = ParamCopy(lambda k: k.to(dtype).contiguous())
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """lecun-normal kernel (flax's default), zero bias."""
@@ -53,12 +86,15 @@ class Conv(nn.Module):
                                   b=2 * std, generator=generator)
             self.bias.zero_()
 
+    def hwio_kernel(self) -> torch.Tensor:
+        """The kernel [k, k, cin, cout] in the compute dtype (cached)."""
+        return self._hwio.get(self.kernel)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2),
-                     self.kernel.to(dt).permute(3, 2, 0, 1),
+        w, b = self._packed.get(self.kernel, self.bias)
+        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
                      stride=self.stride)
-        return y.permute(0, 2, 3, 1) + self.bias.to(dt)
+        return y.permute(0, 2, 3, 1) + b
 
 
 class InstanceNorm(nn.Module):
@@ -118,7 +154,7 @@ class ConvBlock(nn.Module):
             # Looked up on the module at call time, so a check can swap in
             # the plain version (chip_smoke.py does).
             y, mean, var = fused_resblock.conv3x3_stats(
-                x.to(self.dtype).contiguous(), self.conv.kernel,
+                x.to(self.dtype).contiguous(), self.conv.hwio_kernel(),
                 self.conv.bias)
             y = self.norm(y, stats=(mean, var))
         else:

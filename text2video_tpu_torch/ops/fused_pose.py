@@ -20,15 +20,17 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from text2video_tpu.ops.smooth import (
+from text2video_tpu_torch import device as devices
+from text2video_tpu_torch import kernels
+from text2video_tpu_torch.ops.smooth import (
     MOUTH_CENTER_HI,
     MOUTH_CENTER_LO,
     MOUTH_HI,
     MOUTH_LO,
 )
-from text2video_tpu_torch import kernels
 
 FACE_D, POSE_D = 210, 75
+MAX_SMOOTH_WIDTH = 8  # the kernel is built for widths 1..8
 
 # Kernel launches since import; chip_smoke.py reads and resets it.
 launches = 0
@@ -54,6 +56,7 @@ def blend_and_smooth_plain(
     clo, chi = MOUTH_CENTER_LO * 3, MOUTH_CENTER_HI * 3
     mlo, mhi = MOUTH_LO * 3, MOUTH_HI * 3
     n_c = MOUTH_CENTER_HI - MOUTH_CENTER_LO
+    xy_only = (torch.arange(3, device=rows.device) < 2).float()  # x, y
     for t in range(t_len):
         lo, hi = max(t - sw, 0), min(t + sw, t_len)
         wts = weights[lo - t + sw: hi - t + sw]
@@ -63,8 +66,7 @@ def blend_and_smooth_plain(
         off = (
             ave[clo:chi].view(-1, 3).sum(dim=0) / n_c
             - cur[clo:chi].view(-1, 3).sum(dim=0) / n_c
-        )
-        off[2] = 0.0
+        ) * xy_only  # confidences are not shifted
         ave[mlo:mhi] = (cur[mlo:mhi].view(-1, 3) + off).view(-1)
         rows[t] = ave
     return rows[:, :FACE_D].contiguous(), rows[:, FACE_D:].contiguous()
@@ -91,6 +93,9 @@ def blend_and_smooth(
                          f"{tuple(tabf.shape)} {tuple(tabp.shape)}")
     if t_len < 1 or tuple(i2.shape) != (t_len,) or tuple(w2.shape) != (t_len,):
         raise ValueError("blend_and_smooth: i1, i2, w2 must be [T], T >= 1")
+    if not 1 <= smooth_width <= MAX_SMOOTH_WIDTH:
+        raise ValueError(f"blend_and_smooth: the kernel takes smooth widths "
+                         f"1..{MAX_SMOOTH_WIDTH}, got {smooth_width}")
     args = (tabf, tabp, i1, i2, w2)
     dtypes = (torch.float32,) * 2 + (torch.int32,) * 2 + (torch.float32,)
     for a, dt in zip(args, dtypes):
@@ -112,11 +117,13 @@ def blend_and_smooth(
 
 
 def synthesize_and_smooth(
-    plan, table, smooth_width: int = 4, device="cpu"
+    plan, table, smooth_width: int = 4, device=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PosePlan + KeypointTable -> smoothed (face [T, 210], pose [T, 75])
-    f32 tensors on ``device`` (same contract as
-    ``text2video_tpu.ops.fused_pose.synthesize_and_smooth_pallas``)."""
+    f32 tensors on ``device``, the card unless the caller names another
+    (same contract as ``synthesize_and_smooth_pallas`` in
+    ``text2video_tpu/ops/fused_pose.py``)."""
+    device = devices.resolve(device)
     n = len(table)
     for rows in (plan.i1, plan.i2):
         if rows.size and (rows.min() < 0 or rows.max() >= n):

@@ -3,8 +3,9 @@
 Counterpart of ``text2video_tpu/ops/fused_resblock.py``. The kernel
 (``csrc/conv3x3_stats.cu``) runs every resblock conv of the generator and
 emits the conv output in the compute dtype plus per-tile channel sums taken
-from its f32 accumulator; this module finishes the statistics exactly as the
-JAX wrapper does (``mean = s1/n``, ``var = max(s2/n - mean^2, 0)``).
+from its f32 accumulator, which a second small kernel of the same call
+finishes exactly as the JAX wrapper does (``mean = s1/n``,
+``var = max(s2/n - mean^2, 0)``).
 
 Dispatch: a CPU tensor takes :func:`conv3x3_stats_plain`; a CUDA tensor
 launches the kernel or raises.
@@ -47,9 +48,10 @@ def conv3x3_stats_plain(
 def conv3x3_stats(
     x: torch.Tensor, k: torch.Tensor, b: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x [B, H, W, C] compute dtype (bf16 or f32), k [3, 3, C, C] HWIO f32
-    params, b [C] f32 -> (y [B, H, W, C] compute dtype, mean [B, C] f32,
-    var [B, C] f32)."""
+    """x [B, H, W, C] compute dtype (bf16 or f32), k [3, 3, C, C] HWIO in
+    f32 or the compute dtype (taken as it is when it already has x's dtype;
+    callers keep such a copy), b [C] f32 -> (y [B, H, W, C] compute dtype,
+    mean [B, C] f32, var [B, C] f32)."""
     if x.device.type == "cpu":
         return conv3x3_stats_plain(x, k, b)
     if x.device.type != "cuda":
@@ -66,28 +68,30 @@ def conv3x3_stats(
                          f"{tuple(b.shape)} do not match C={c}")
     if k.device != x.device or b.device != x.device:
         raise ValueError("conv3x3_stats: x, k and b must share a device")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("conv3x3_stats: x must be contiguous and 16-byte "
-                         "aligned")
     is_bf16 = x.dtype == torch.bfloat16
-    kc = k.to(x.dtype).contiguous()
+    kc = k.to(x.dtype).contiguous()  # no copy when k already is
     bf = b.float().contiguous()
+    if not x.is_contiguous() or x.data_ptr() % 16 or kc.data_ptr() % 16:
+        raise ValueError("conv3x3_stats: x and k must be contiguous and "
+                         "16-byte aligned")
     lib = kernels.library()
-    tiles = -(-(h * w) // lib.t2v_conv3x3_block_m(int(is_bf16)))
+    tiles = lib.t2v_conv3x3_tiles(h, w, int(is_bf16))
     y = torch.empty_like(x)
+    stats = torch.empty((2, bsz, c), dtype=torch.float32, device=x.device)
     parts = torch.empty((bsz, tiles, 2, c), dtype=torch.float32,
                         device=x.device)
+    # bf16 loads its A tiles by TMA from a reflect-padded copy of x.
+    xp = (torch.empty((bsz, h + 2, w + 2, c), dtype=x.dtype, device=x.device)
+          if is_bf16 else None)
     with torch.cuda.device(x.device):
         rc = lib.t2v_conv3x3_stats(
             x.data_ptr(), kc.data_ptr(), bf.data_ptr(), y.data_ptr(),
-            parts.data_ptr(), bsz, h, w, c, int(is_bf16),
-            torch.cuda.current_stream().cuda_stream,
+            parts.data_ptr(), stats.data_ptr(), stats.data_ptr() + bsz * c * 4,
+            xp.data_ptr() if is_bf16 else None, bsz, h, w, c, int(is_bf16),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check_launch(rc, "conv3x3_stats")
     global launches
     launches += 1
-    n = float(h * w)
-    sums = parts.sum(dim=1)  # [B, 2, C]
-    mean = sums[:, 0] / n
-    var = torch.clamp(sums[:, 1] / n - mean.square(), min=0.0)
+    mean, var = stats
     return y, mean, var

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from text2video_tpu_torch import device as devices
+
 POSE_EDGES: List[Tuple[int, int]] = [
     (0, 1), (1, 8),          # trunk
     (1, 2), (2, 3), (3, 4),  # right arm
@@ -278,14 +280,16 @@ def _round_up(x: int, m: int) -> int:
 
 
 def rasterize_batch(face, pose, hand_l, hand_r, size: Tuple[int, int],
-                    chunk: int = 64, to_host: bool = True, device="cpu"):
+                    chunk: int = 64, to_host: bool = True, device=None):
     """Tracks (face [T, 210], pose [T, 75], hands [T, 63]; numpy or tensors)
-    -> [T, h, w, 3] uint8 numpy frames, drawn on ``device`` in chunks of
-    ``chunk`` frames (the last padded with zeros).
+    -> [T, h, w, 3] uint8 numpy frames, drawn on ``device`` (the card
+    unless the caller names another) in chunks of ``chunk`` frames (the
+    last padded with zeros).
 
     ``to_host=False`` returns the list of per-chunk device tensors instead,
     the last still padded to ``chunk`` frames, for an on-device consumer
     (the renderer)."""
+    device = devices.resolve(device)
     w, h = size
     t_len = face.shape[0]
     n_samples = _round_up(max(w, h), 128)

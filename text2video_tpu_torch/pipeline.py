@@ -19,14 +19,16 @@ from typing import List, Optional
 
 import numpy as np
 
-from text2video_tpu.config import PersonProfile, PipelineConfig
-from text2video_tpu.frontend.audio import ALIGN_SAMPLE_RATE
-from text2video_tpu.frontend.timestamps import Timestamps
-from text2video_tpu.utils.logging import get_logger
-from text2video_tpu.utils.profiling import StageTimer
+from text2video_tpu_torch import device as devices
+from text2video_tpu_torch.config import PersonProfile, PipelineConfig
+from text2video_tpu_torch.frontend.audio import ALIGN_SAMPLE_RATE
+from text2video_tpu_torch.frontend.timestamps import Timestamps
+from text2video_tpu_torch.io.video import StreamingMuxer, mux
 from text2video_tpu_torch.ops.rasterize import rasterize_batch
 from text2video_tpu_torch.pose_stage import PoseStage
 from text2video_tpu_torch.render import Renderer
+from text2video_tpu_torch.utils.logging import get_logger
+from text2video_tpu_torch.utils.profiling import StageTimer
 
 
 @dataclasses.dataclass
@@ -50,14 +52,16 @@ def _scale_tracks(arr: np.ndarray, sx: float, sy: float) -> np.ndarray:
 
 class Text2VideoPipeline:
     def __init__(self, config: PipelineConfig,
-                 renderer: Optional[Renderer] = None):
+                 renderer: Optional[Renderer] = None, device=None):
+        """Every stage runs on the renderer's device; without a renderer,
+        on ``device`` (the card unless the caller names another)."""
         if config.emit_intermediates:
             raise ValueError("emit_intermediates is not ported yet")
         self.config = config
         self.profile: PersonProfile = config.person
         self.renderer = renderer
-        # Every stage runs on the renderer's device.
-        self.device = renderer.device if renderer is not None else "cpu"
+        self.device = (renderer.device if renderer is not None
+                       else devices.resolve(device))
         self.pose_stage = PoseStage(self.profile, device=self.device)
 
     def synthesize(
@@ -104,12 +108,9 @@ class Text2VideoPipeline:
                     device=self.device,
                 )
             if cfg.stream and not need_host_labels:
-                from text2video_tpu.io.video import StreamingMuxer
-
                 muxer = StreamingMuxer(
                     base, w2, h2, fps=self.profile.fps,
                     sample_rate=sample_rate, audio=audio,
-                    wire_quality=self.renderer.config.wire_quality,
                 )
                 with timer.stage("render"):
                     for y, u, v in self.renderer.render_stream_yuv(
@@ -135,8 +136,6 @@ class Text2VideoPipeline:
             frames = labels  # skeleton passthrough (no trained GAN)
 
         if frames is not None:
-            from text2video_tpu.io.video import mux
-
             with timer.stage("mux"):
                 files = mux(frames, audio, base, fps=self.profile.fps,
                             sample_rate=sample_rate)

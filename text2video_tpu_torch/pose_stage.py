@@ -14,14 +14,18 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
-import torch
 
-from text2video_tpu.config import PersonProfile
-from text2video_tpu.frontend.timestamps import Timestamps
-from text2video_tpu.io.dicts import KeypointTable, PoseDictionary
-from text2video_tpu.ops.interp import PosePlan, plan_pose_track, synthesize_host
-from text2video_tpu.ops.smooth import smooth_host
+from text2video_tpu_torch import device as devices
+from text2video_tpu_torch.config import PersonProfile
+from text2video_tpu_torch.frontend.timestamps import Timestamps
+from text2video_tpu_torch.io.dicts import KeypointTable, PoseDictionary
 from text2video_tpu_torch.ops.fused_pose import synthesize_and_smooth
+from text2video_tpu_torch.ops.interp import (
+    PosePlan,
+    plan_pose_track,
+    synthesize_host,
+)
+from text2video_tpu_torch.ops.smooth import smooth_host
 
 
 @dataclasses.dataclass
@@ -46,14 +50,16 @@ class PoseStage:
         profile: PersonProfile,
         pdict: Optional[PoseDictionary] = None,
         table: Optional[KeypointTable] = None,
-        device="cpu",
+        device=None,
     ):
+        """``device``: where the fused op runs, the card unless the caller
+        names another."""
         self.profile = profile
         self.pdict = pdict or PoseDictionary.load(
             profile.dict_path, profile.keypoint_layout)
         self.table = table or KeypointTable.load_dir(
             profile.keypoints_dir, profile.keypoint_layout)
-        self.device = torch.device(device)
+        self.device = devices.resolve(device)
 
     def run(self, ts: Timestamps, device: bool = True) -> PoseResult:
         """device=True: float32 fused op on ``self.device``; device=False:

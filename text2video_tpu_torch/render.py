@@ -23,7 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from text2video_tpu.config import RenderConfig
+from text2video_tpu_torch import device as devices
+from text2video_tpu_torch.config import RenderConfig
 from text2video_tpu_torch.models.generator import CompositeGenerator
 from text2video_tpu_torch.ops.colorspace import rgb_norm_to_yuv420
 
@@ -69,10 +70,12 @@ class Renderer:
         base_ch: int = 64,
         n_blocks: int = 9,
         dtype: torch.dtype = torch.bfloat16,
-        device="cpu",
+        device=None,
     ) -> "Renderer":
         """Renderer with seeded random weights (trained weights come from a
-        converted checkpoint, ``convert.py``)."""
+        converted checkpoint, ``convert.py``) on ``device``, the card unless
+        the caller names another."""
+        device = devices.resolve(device)
         config = config or RenderConfig()
         gen = CompositeGenerator(
             in_channels=3 * (config.n_frames_ctx + config.use_prev_frames),
