@@ -9,10 +9,17 @@ same forward through the plain version, then drives the serving path end to
 end at the flagship model's full width (512x384, base 64, 9 resblocks,
 bf16, seeded random weights, a 256-frame utterance from the golden pose
 frames): ``Text2VideoPipeline.synthesize`` with the fused pose op, the
-device rasterizer, the autoregressive renderer and the muxer.
+device rasterizer, the autoregressive renderer and the muxer. Then it runs
+the user's entry points the way a user calls them, ``cli.main`` with the
+port's ``tts``, ``audio``, ``tts-chinese`` and ``audio-batch`` commands, on
+a data directory written from the golden frames and that renderer saved as
+a checkpoint at height 384: text becomes an mp4 through the frontend (TTS,
+forced alignment) and both kernels, and four utterances render as one
+batch, held at frame 0 against batch 1.
 
 Prints one line per phase, then a JSON line with each kernel's launches on
-the serving path, its error against the plain version, its time beside the
+the serving path (and on each CLI path), its error against the plain
+version, its time beside the
 plain version's, a library call's (where one computes the same function)
 and its bound (the least time the card could take: bytes over 3.35 TB/s or
 operations over 989 TFLOP/s bf16, NVIDIA's H100 SXM data sheet), then the
@@ -26,7 +33,9 @@ and nothing of the JAX package ``text2video_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -41,7 +50,8 @@ import torch.nn.functional as F
 
 B1_SHAPES = [  # (shape, kernel scale or None for lecun)
     ((1, 48, 64, 512), None),   # the scan at 512x384 (batch 1)
-    ((4, 48, 64, 512), None),   # batch 4
+    ((4, 48, 64, 512), None),   # batch 4 (audio-batch)
+    ((1, 48, 88, 512), None),   # henan at 384x704 (tts-chinese)
     ((2, 16, 24, 64), None),
     ((1, 12, 28, 128), 0.05),   # odd sizes of the JAX package's tests
     ((1, 8, 112, 128), 0.05),
@@ -120,6 +130,272 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+EN_TEXT = ("She had your dark suit in greasy wash water all year. Don't ask "
+           "me to carry an oily rag like that. Do they make it")  # ~10.8 s
+ZH_TEXT = "今天天气很好我们一起去公园散步吧"  # 16 hanzi, ~5.2 s
+BATCH_TEXTS = (  # four utterances of different lengths and names
+    "Do they make it",
+    "Don't ask me to carry an oily rag like that",
+    "She had your dark suit in greasy wash water all year",
+    "Ask me to carry an oily rag like that. She had your dark suit in "
+    "greasy wash water all year. Do they make it",
+)
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process with the launch counters at 0:
+    (the JSON it printed, wall seconds, launches by kernel)."""
+    from text2video_tpu_torch import cli
+    from text2video_tpu_torch.ops import fused_pose, fused_resblock
+
+    buf = io.StringIO()
+    fused_resblock.launches = 0
+    fused_pose.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    launches = {"conv3x3_stats": fused_resblock.launches,
+                "synthesize_and_smooth": fused_pose.launches}
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), wall, launches
+
+
+def check_mp4(out: dict, hw) -> None:
+    """The run's mp4 holds ``out["frames"]`` frames of ``hw`` that are not
+    constant."""
+    import cv2
+
+    mp4 = next(f for f in out["files"] if f.endswith(".mp4"))
+    cap = cv2.VideoCapture(mp4)
+    frames = []
+    ok, img = cap.read()
+    while ok:
+        frames.append(img)
+        ok, img = cap.read()
+    cap.release()
+    check(len(frames) == out["frames"],
+          f"{mp4}: {len(frames)} frames, the run said {out['frames']}")
+    stack = np.stack(frames)
+    check(stack.shape[1:3] == tuple(hw), f"{mp4}: frames {stack.shape}")
+    check(stack[0].std() > 1.0 and np.abs(
+        stack[-1].astype(int) - stack[0].astype(int)).max() > 0,
+        f"{mp4}: constant frames")
+
+
+def check_launches(name: str, launches: dict, steps: int, b2: int) -> None:
+    check(launches["conv3x3_stats"] == 18 * steps,
+          f"{name}: B1 launched {launches['conv3x3_stats']} times, not 18 "
+          f"a generator step ({steps} steps)")
+    check(launches["synthesize_and_smooth"] == b2,
+          f"{name}: B2 launched {launches['synthesize_and_smooth']} times, "
+          f"not {b2}")
+
+
+def device_profile(fn, steps: int):
+    """Run ``fn`` (``steps`` generator steps) under ``torch.profiler``:
+    (device ms a step, kernels a step, JSON of the ten longest kernels'
+    [ms, launches] a step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    check(by_name, "the profiler saw no device time")
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return (busy / steps, sum(n for _, n in by_name.values()) / steps,
+            json.dumps({name[:60]: [ms / steps, n / steps]
+                        for name, (ms, n) in top}))
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0**2 / mse))
+
+
+def first_diff(a: np.ndarray, b: np.ndarray) -> int:
+    """Index of the first frame where ``a`` and ``b`` differ, -1 if none."""
+    ne = np.flatnonzero((a != b).reshape(len(a), -1).any(axis=1))
+    return int(ne[0]) if len(ne) else -1
+
+
+def cli_phases(tmp: str, renderer, fps_batch1: float) -> dict:
+    """The CLI's tts, audio, tts-chinese and audio-batch commands, each
+    through ``cli.main`` with the golden data directory and ``renderer``
+    saved as a checkpoint at height 384. Returns the launches by path."""
+    from text2video_tpu_torch.checkpoints import save_renderer
+    from text2video_tpu_torch.frontend.audio import save_wav
+    from text2video_tpu_torch.frontend.tts import FormantTTS
+    from text2video_tpu_torch.golden import write_golden_assets
+    from text2video_tpu_torch.ops import fused_resblock
+    from text2video_tpu_torch.render import Renderer
+
+    data = write_golden_assets(os.path.join(tmp, "data"))
+    ckpt = os.path.join(tmp, "ckpt")
+    save_renderer(renderer, ckpt, height=384)
+    out_dir = os.path.join(tmp, "out")
+    common = ["--data-dir", data, "--gan-checkpoint", ckpt, "--out", out_dir,
+              "--pose-device", "device"]
+    by_path = {}
+
+    out, wall, n = run_cli(["tts", EN_TEXT, "fadg0", "f", *common])
+    check_mp4(out, (384, 512))
+    check_launches("cli_tts", n, out["frames"], 1)
+    by_path["cli_tts"] = n
+    st = out["stage_seconds"]
+    phase("cli_tts", frames=out["frames"], wall_s=wall,
+          frontend_host_s=st["tts"] + st["align"],
+          stage_seconds=json.dumps(st), b1_launches=n["conv3x3_stats"],
+          b2_launches=n["synthesize_and_smooth"])
+    wav = next(f for f in out["files"] if f.endswith(".wav"))
+    tts_frames = out["frames"]
+
+    out, wall, n = run_cli(["audio", EN_TEXT, "fadg0", "--wav", wav,
+                            *common])
+    check_mp4(out, (384, 512))
+    check(abs(out["frames"] - tts_frames) <= 2,
+          f"cli_audio: {out['frames']} frames, cli_tts {tts_frames}")
+    check_launches("cli_audio", n, out["frames"], 1)
+    by_path["cli_audio"] = n
+    phase("cli_audio", frames=out["frames"], wall_s=wall,
+          stage_seconds=json.dumps(out["stage_seconds"]),
+          b1_launches=n["conv3x3_stats"],
+          b2_launches=n["synthesize_and_smooth"])
+
+    out, wall, n = run_cli(["tts-chinese", ZH_TEXT, "henan", "f", *common])
+    check_mp4(out, (384, 704))  # henan's 1920x1080 canvas at height 384
+    check_launches("cli_tts_chinese", n, out["frames"], 1)
+    by_path["cli_tts_chinese"] = n
+    st = out["stage_seconds"]
+    phase("cli_tts_chinese", frames=out["frames"], hw="384x704",
+          wall_s=wall, frontend_host_s=st["tts"] + st["align"],
+          stage_seconds=json.dumps(st), b1_launches=n["conv3x3_stats"],
+          b2_launches=n["synthesize_and_smooth"])
+
+    # audio-batch: four wavs of the port's own TTS, one generator batch.
+    # Wrappers record the shapes B1 is called at, and the labels, frames and
+    # renderer of the batch's render (both call through).
+    pairs = []
+    for i, text in enumerate(BATCH_TEXTS):
+        path = os.path.join(tmp, f"utt{i}.wav")
+        save_wav(path, FormantTTS().synthesize(text, 16000), 16000)
+        pairs += [text, path]
+    shapes, seen = set(), {}
+    kernel_fn = fused_resblock.conv3x3_stats
+    render_fn = Renderer.render_many_device
+
+    def recording(x, *args, **kw):
+        shapes.add(tuple(x.shape))
+        return kernel_fn(x, *args, **kw)
+
+    def recording_render(model, labels_u8):
+        frames = render_fn(model, labels_u8)
+        seen.update(model=model, labels=labels_u8, frames=frames)
+        return frames
+
+    torch.cuda.reset_peak_memory_stats()
+    fused_resblock.conv3x3_stats = recording
+    Renderer.render_many_device = recording_render
+    try:
+        outs, wall, n = run_cli([
+            "audio-batch", "fadg0", "--data-dir", data, "--gan-checkpoint",
+            ckpt, "--out", os.path.join(tmp, "batch"), "--pose-device",
+            "device", *pairs])
+    finally:
+        fused_resblock.conv3x3_stats = kernel_fn
+        Renderer.render_many_device = render_fn
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    lengths = [o["frames"] for o in outs]
+    t_max = max(lengths)
+    check(len(outs) == 4 and len(set(lengths)) == 4,
+          f"cli_audio_batch: frames {lengths}")
+    check_launches("cli_audio_batch", n, t_max, len(outs))
+    # The resblocks work at 1/8 of 384x512 with 8 x base_ch channels.
+    res_shape = (4, 48, 64, renderer.generator.heads.kernel.shape[2] * 8)
+    check(shapes == {res_shape}, f"B1 shapes in the batch: {shapes}")
+    for o in outs:
+        check_mp4(o, (384, 512))
+    by_path["cli_audio_batch"] = n
+    render_s = outs[0]["stage_seconds"]["render"]
+
+    # Each utterance at batch 1 on the labels the batch rendered, with the
+    # CLI's renderer: frame 0 gated, the rest reported (random weights make
+    # later frames chaotic), with the first frame that differs.
+    model, labels, frames_b = seen["model"], seen["labels"], seen["frames"]
+    singles, single_s = [], 0.0
+    for i, t in enumerate(lengths):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles.append(model.render_many_device(labels[i:i + 1, :t])[0])
+        single_s += time.perf_counter() - t0
+    errs = [int(np.abs(s[0].astype(int) - frames_b[i, 0].astype(int)).max())
+            for i, s in enumerate(singles)]
+    check(max(errs) <= 2, f"batch frame 0 vs batch 1: max |diff| {errs}")
+    psnrs = [psnr(s, frames_b[i, :len(s)]) for i, s in enumerate(singles)]
+    firsts = [first_diff(s, frames_b[i, :len(s)])
+              for i, s in enumerate(singles)]
+    # Where the longest clip's frames part from batch 1: batch 1 again (is
+    # the render deterministic?), four copies of it in one batch, and it
+    # beside three rows of zero labels from the start. A row of a batch
+    # must depend on its own labels and the batch size only: the four
+    # copies and the row beside zero rows are gated to be equal.
+    k = int(np.argmax(lengths))
+    one = labels[k:k + 1, :t_max]
+    alone = torch.zeros_like(labels)
+    alone[k] = labels[k]
+    copies = model.render_many_device(one.repeat(4, 1, 1, 1, 1))
+    beside_zeros = model.render_many_device(alone)[k]
+    longest = {
+        "batch1_again": first_diff(model.render_many_device(one)[0],
+                                   singles[k]),
+        "four_copies": [first_diff(f, singles[k]) for f in copies],
+        "zero_rows": first_diff(beside_zeros, singles[k]),
+    }
+    check(longest["batch1_again"] == -1
+          and all(np.array_equal(f, copies[0]) for f in copies)
+          and np.array_equal(beside_zeros, copies[0]),
+          f"batch rows not independent or not deterministic: {longest}, "
+          f"copies vs copy 0 {[first_diff(f, copies[0]) for f in copies]}, "
+          f"beside zero rows vs copy 0 {first_diff(beside_zeros, copies[0])}")
+    del copies
+    # The plain instance norm's f32 statistics (the norm layers outside B1)
+    # of one row, at batch 4 and alone, at the generator's widths: equal?
+    norm_rows_equal = []
+    for hwc in ((384, 512, 64), (192, 256, 128), (96, 128, 256),
+                (48, 64, 512)):
+        x = torch.randn((4, *hwc), device="cuda").to(torch.bfloat16)
+        norm_rows_equal.append([torch.equal(  # E[x] and E[x^2], as the layer
+            f(x).float().mean(dim=(1, 2))[k],
+            f(x[k:k + 1]).float().mean(dim=(1, 2))[0])
+            for f in (lambda v: v, torch.square)])
+    total = sum(lengths)
+    busy4, n_kernels4, top4 = device_profile(
+        lambda: model.generate_device(labels[:, :CHUNK]), CHUNK)
+    phase("cli_audio_batch", frames=lengths, wall_s=wall,
+          stage_seconds=json.dumps(outs[0]["stage_seconds"]),
+          b1_launches=n["conv3x3_stats"], b1_shapes=sorted(shapes),
+          b2_launches=n["synthesize_and_smooth"],
+          frame0_max_diff_vs_batch1=errs, psnr_vs_batch1_db=psnrs,
+          first_diff_frame_vs_batch1=firsts,
+          longest_first_diff=json.dumps(longest),
+          norm_stats_row_b4_equal_b1=norm_rows_equal,
+          utt_fps_batch4=total / render_s, utt_fps_batch1=total / single_s,
+          generate_fps_batch1=fps_batch1, peak_mem_gib=peak_gib,
+          device_ms_per_step_b4=busy4, kernels_per_step_b4=n_kernels4,
+          top_ms_launches_per_step_b4=top4)
+    return by_path
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
@@ -130,13 +406,19 @@ def main() -> None:
     dev = torch.device("cuda")
 
     from text2video_tpu_torch import kernels
+    from text2video_tpu_torch.frontend import native
 
-    # ---- 1. build ----------------------------------------------------------
+    # ---- 1. build: the CUDA kernels and, beside them, the frontend's native
+    # library (g++), which the CLI phases use -------------------------------
     t0 = time.perf_counter()
     lib_path, log = kernels.build()
     kernels.library()
-    phase("build", seconds=round(time.perf_counter() - t0, 3),
-          lib=os.path.relpath(lib_path), ptxas=json.dumps(ptxas_lines(log)))
+    kernels_s = time.perf_counter() - t0
+    native_lib = native.ensure_built()
+    phase("build", seconds=round(kernels_s, 3),
+          native_seconds=round(time.perf_counter() - t0 - kernels_s, 3),
+          lib=os.path.relpath(lib_path), native=os.path.relpath(native_lib),
+          ptxas=json.dumps(ptxas_lines(log)))
 
     from text2video_tpu_torch.ops import fused_pose, fused_resblock
 
@@ -183,7 +465,7 @@ def main() -> None:
                 fields.update(ms=ms, plain_ms=plain_ms,
                               library_ms=library_ms, bound_ms=bound_ms,
                               bound_by=bound_by, bound_share=bound_ms / ms)
-                if dt == torch.bfloat16 and shape[0] == 1:
+                if dt == torch.bfloat16 and shape == B1_SHAPES[0][0]:
                     b1 = dict(max_abs_err=errs[0], ms=ms,
                               plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=library_ms)
@@ -336,8 +618,7 @@ def main() -> None:
 
     # Warm generation rate at batch 1 (the renderer alone, 256 frames), three
     # times: the host's share of a frame varies from run to run.
-    labels = (torch.from_numpy(warm.label_maps).to(dev)[None].float()
-              / 127.5 - 1.0)
+    labels = torch.from_numpy(warm.label_maps).to(dev)[None]
     rates = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -352,40 +633,36 @@ def main() -> None:
 
     # Where the device time of a frame goes: one warm chunk under the
     # profiler (which slows the host, so its wall clock is not the rate).
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        renderer.generate_device(labels[:, :CHUNK])
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    check(by_name, "the profiler saw no device time")
-    busy = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    phase("profile", frames=CHUNK, device_ms_per_frame=busy / CHUNK,
-          kernels_per_frame=sum(n for _, n in by_name.values()) / CHUNK,
-          top_ms_launches_per_frame=json.dumps(
-              {name[:60]: [ms / CHUNK, n / CHUNK] for name, (ms, n) in top}))
+    busy, n_kernels, top = device_profile(
+        lambda: renderer.generate_device(labels[:, :CHUNK]), CHUNK)
+    phase("profile", frames=CHUNK, device_ms_per_frame=busy,
+          kernels_per_frame=n_kernels, top_ms_launches_per_frame=top)
+    # ---- 6. the user's entry points: the CLI, text (or audio) in, mp4 out --
+    pipeline.PoseStage = port_stage  # the CLI runs unpatched from here on
+    by_path = {"slice": launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(cli_phases(tmp, renderer, fps_batch1=float(
+            np.median(rates))))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "text2video_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
-    # ---- 6. the card, 7. the result -----------------------------------------
+    # ---- 7. the card, 8. the result -----------------------------------------
     print(json.dumps({"kernels": [
         {"name": "conv3x3_stats", "route": "cuda",
          "source": "text2video_tpu_torch/csrc/conv3x3_stats.cu",
          "replaces": "text2video_tpu/ops/fused_resblock.py:64",
          "launches": launches["conv3x3_stats"],
-         "launches_per_frame": launches["conv3x3_stats"] / N_FRAMES, **b1},
+         "launches_per_frame": launches["conv3x3_stats"] / N_FRAMES,
+         "launches_by_path": {k: v["conv3x3_stats"]
+                              for k, v in by_path.items()}, **b1},
         {"name": "synthesize_and_smooth", "route": "cuda",
          "source": "text2video_tpu_torch/csrc/fused_pose.cu",
          "replaces": "text2video_tpu/ops/fused_pose.py:46",
          "launches": launches["synthesize_and_smooth"],
          "launches_per_frame": launches["synthesize_and_smooth"] / N_FRAMES,
+         "launches_by_path": {k: v["synthesize_and_smooth"]
+                              for k, v in by_path.items()},
          "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms,
          "bound_ms": b2_bound_ms, "bound_by": b2_bound_by,
          "library_ms": None},

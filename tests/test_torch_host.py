@@ -195,8 +195,13 @@ def test_stage_timer_and_logger(capsys):
 
 # ---- entry points run on the card unless asked -----------------------------
 
-def _entry_points():
-    from text2video_tpu_torch import pipeline
+def _entry_points(ckpt):
+    from text2video_tpu_torch import cli, pipeline
+    from text2video_tpu_torch.checkpoints import load_renderer
+    from text2video_tpu_torch.frontend.align_english import (
+        EnglishAligner,
+        PronouncingDict,
+    )
     from text2video_tpu_torch.ops.fused_pose import synthesize_and_smooth
     from text2video_tpu_torch.ops.interp import plan_pose_track
     from text2video_tpu_torch.ops.rasterize import rasterize_batch
@@ -214,18 +219,36 @@ def _entry_points():
                                                    (64, 48), chunk=2),
         "Text2VideoPipeline": lambda: pipeline.Text2VideoPipeline(
             tconfig.PipelineConfig(person=profile)),
+        "Text2VideoPipeline with an aligner": lambda: (
+            pipeline.Text2VideoPipeline(
+                tconfig.PipelineConfig(person=profile),
+                aligner=EnglishAligner(None, PronouncingDict({})))),
+        "load_renderer": lambda: load_renderer(ckpt, profile),
+        "cli": lambda: cli.main(["tts-chinese", "你好", "henan"]),
     }
+
+
+def _saved_checkpoint(tmp_path):
+    from text2video_tpu_torch.checkpoints import save_renderer
+    from text2video_tpu_torch.render import Renderer
+
+    save_renderer(Renderer.create(base_ch=8, n_blocks=1, device="cpu"),
+                  str(tmp_path), height=64)
+    return str(tmp_path)
 
 
 @pytest.mark.parametrize("name", ["Renderer.create", "PoseStage",
                                   "synthesize_and_smooth", "rasterize_batch",
-                                  "Text2VideoPipeline"])
-def test_entry_point_defaults_to_the_card(monkeypatch, name):
-    """Called without ``device`` where there is no card, each entry point
-    raises instead of running on the CPU."""
+                                  "Text2VideoPipeline",
+                                  "Text2VideoPipeline with an aligner",
+                                  "load_renderer", "cli"])
+def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path, name):
+    """Called without ``device`` (the CLI without ``--device``) where there
+    is no card, each entry point raises instead of running on the CPU."""
+    entry = _entry_points(_saved_checkpoint(tmp_path))[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        _entry_points()[name]()
+        entry()
 
 
 # ---- compute-dtype weights are made once and follow load_state_dict -------

@@ -1,7 +1,8 @@
 """The port imports and runs without JAX and without the JAX package: every
-submodule imports, and the plain slice (pose stage -> rasterizer -> renderer
--> mux) runs at a tiny size, in a child process where importing jax, flax,
-optax or text2video_tpu fails."""
+submodule imports, the plain slice (pose stage -> rasterizer -> renderer ->
+mux) runs at a tiny size, and the CLI's ``tts`` turns text into an mp4 on
+the golden data directory with a tiny checkpoint, in a child process where
+importing jax, flax, optax or text2video_tpu fails."""
 
 import os
 import subprocess
@@ -46,6 +47,20 @@ SCRIPT = textwrap.dedent(
             ts, "utt", keep_arrays=True)
     assert run.frames.shape == (6, 64, 64, 3), run.frames.shape
     assert run.frames.std() > 0
+
+    from text2video_tpu_torch import cli
+    from text2video_tpu_torch.checkpoints import save_renderer
+    from text2video_tpu_torch.golden import write_golden_assets
+
+    pipeline.PoseStage = port_stage  # the CLI reads the data directory
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_golden_assets(tmp + "/data")
+        save_renderer(renderer, tmp + "/ckpt", height=64)
+        assert cli.main(["tts", "Do they make it", "fadg0", "--data-dir",
+                         data, "--gan-checkpoint", tmp + "/ckpt", "--out",
+                         tmp + "/out", "--device", "cpu"]) == 0
+        import os
+        assert os.path.getsize(tmp + "/out/fadg0/Dotheymake.mp4") > 0
     loaded = [k for k, v in sys.modules.items() if v is not None
               and k.split(".")[0] in ("jax", "flax", "optax", "text2video_tpu")]
     assert not loaded, loaded

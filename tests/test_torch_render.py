@@ -60,7 +60,8 @@ def test_generate_device_matches_jax(renderers):
     ref = np.concatenate(
         [np.asarray(c) for c in jr.generate_device(jnp.asarray(labels))],
         axis=1)
-    chunks = tr.generate_device(torch.from_numpy(labels))
+    # The port takes the uint8 maps and scales them a chunk at a time.
+    chunks = tr.generate_device(torch.from_numpy(_labels_u8()[None]))
     assert [tuple(c.shape) for c in chunks] == [(1, BUCKET, H, W, 3)] * 2
     out = torch.cat(chunks, dim=1).numpy()
     assert out.dtype == np.uint8
@@ -109,3 +110,27 @@ def test_resize_labels_matches_jax_antialiased_downscale():
                                       method="linear"))
     out = resize_labels(torch.from_numpy(x), 24, 36).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("path", ["generate_device", "device_chunks",
+                                  "yuv_stream", "render_many"])
+def test_generator_runs_once_per_frame(renderers, path):
+    """The padding frames of the last chunk cost no generator step."""
+    _, tr = renderers
+    calls = []
+    hook = tr.generator.register_forward_hook(lambda *a: calls.append(1))
+    labels = _labels_u8()
+    try:
+        if path == "generate_device":
+            tr.generate_device(torch.from_numpy(labels)[None])
+        elif path == "device_chunks":
+            tr.render_from_device_chunks(
+                [torch.from_numpy(c) for c in _chunks(labels)], T)
+        elif path == "yuv_stream":
+            list(tr.render_stream_yuv(
+                [torch.from_numpy(c) for c in _chunks(labels)], T))
+        else:
+            tr.render_many(np.stack([labels, labels]))
+    finally:
+        hook.remove()
+    assert len(calls) == T

@@ -6,8 +6,10 @@ versions), and imports neither JAX nor the JAX package: the host modules
 it needs (config, keypoint I/O, timestamps, the pose planner and the host
 smoother, the muxers, the stage timer) are its own copies.
 
-This slice covers the serving path: pose stage -> rasterizer ->
-autoregressive ``CompositeGenerator`` -> uint8 / YUV420 frames -> host.
+It covers text or audio in, video out (``cli.py``): the host frontend
+(TTS, forced alignment, pinyin) -> pose stage -> rasterizer ->
+autoregressive ``CompositeGenerator``, one utterance or a batch -> uint8 /
+YUV420 frames -> host -> muxer.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -12,12 +12,19 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from pathlib import Path
 from typing import Optional, Tuple
 
 # Default asset root. Point T2V_DATA_DIR at a directory laid out like the
 # reference repo's data folders to reuse its dictionaries/keypoints; the
 # default is a ``reference`` folder in the working directory.
 DATA_DIR = os.environ.get("T2V_DATA_DIR", "reference")
+
+# The packaged frontend data (pinyin tables, acoustic models ``*.am``) is
+# read by path from the JAX package's data folder: a read of data files,
+# not an import, and no second copy of the binary models.
+PACKAGED_DATA_DIR = (
+    Path(__file__).resolve().parent.parent / "text2video_tpu" / "data")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,2 @@
-"""Frontend records the pose stage consumes (timestamps, audio I/O)."""
+"""Host-side frontend: text and audio -> timestamps (TTS, alignment,
+pinyin, the native speech library's binding, audio I/O)."""

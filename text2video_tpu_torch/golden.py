@@ -1,37 +1,51 @@
 """Pose inputs built from the committed golden OpenPose frames.
 
 The reference data set (dictionaries, keypoint folders, timestamp files) is
-not part of the repository, so the slice's smoke run and the parity tests
-start from the 87 fadg0 frames under ``tests/goldens/fadg0_Shehadyour/pose``:
-a :class:`KeypointTable` of those frames (flat keys ``("", i)``), a small
-:class:`PoseDictionary` of a dozen ARPAbet symbols, and seeded
-:class:`Timestamps`. ``plan_pose_track`` consumes them unchanged.
+not part of the repository, so the smoke run and the parity tests start
+from the committed golden frames: the 87 fadg0 frames under
+``tests/goldens/fadg0_Shehadyour/pose`` and the 62 henan frames under
+``tests/goldens/henan_111/pose``.
+
+* :func:`golden_pose_inputs`: a :class:`KeypointTable` of the fadg0 frames
+  (flat keys ``("", i)``), a small :class:`PoseDictionary` of a dozen
+  ARPAbet symbols, and seeded :class:`Timestamps`, for ``plan_pose_track``.
+* :func:`write_golden_assets`: a data directory laid out like the
+  reference's, so ``get_profile(name, data_dir=root)`` and the CLI's
+  ``--data-dir`` find dictionaries and keypoint folders for fadg0 and henan
+  that cover every symbol the frontends can emit.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 
-from text2video_tpu_torch.config import PersonProfile, get_profile
+from text2video_tpu_torch.config import (
+    PACKAGED_DATA_DIR,
+    PersonProfile,
+    get_profile,
+)
+from text2video_tpu_torch.frontend.align_english import (
+    ARPABET_BASE,
+    add_default_stress,
+)
 from text2video_tpu_torch.frontend.timestamps import Timestamps
 from text2video_tpu_torch.io.dicts import KeypointTable, PoseDictionary
 from text2video_tpu_torch.io.openpose import frame_from_raw, load_keypoint_json
 
-GOLDEN_POSE_DIR = (
-    Path(__file__).resolve().parent.parent
-    / "tests" / "goldens" / "fadg0_Shehadyour" / "pose"
-)
+GOLDEN_DIR = Path(__file__).resolve().parent.parent / "tests" / "goldens"
+GOLDEN_POSE_DIR = GOLDEN_DIR / "fadg0_Shehadyour" / "pose"
+GOLDEN_HENAN_POSE_DIR = GOLDEN_DIR / "henan_111" / "pose"
 SYMBOLS = ("AA", "AE", "AH", "B", "D", "EH", "IY", "M", "OW", "S", "T", "UW")
 
 
 def golden_table() -> KeypointTable:
     """KeypointTable of the golden frames, row i keyed ``("", i)``."""
-    paths = sorted(GOLDEN_POSE_DIR.glob("*.json"))
-    if not paths:
-        raise FileNotFoundError(f"no golden pose frames under {GOLDEN_POSE_DIR}")
+    paths = _golden_frames(GOLDEN_POSE_DIR)
     frames = [frame_from_raw(load_keypoint_json(str(p))) for p in paths]
     return KeypointTable(
         face=np.stack([f.face for f in frames]),
@@ -80,3 +94,72 @@ def golden_pose_inputs(
         table,
         golden_timestamps(n_frames, seed),
     )
+
+
+def _english_symbols() -> list:
+    """Every symbol the English aligner can emit: the ARPAbet consonants,
+    each vowel with stress 0, 1 and 2, and ``sp``."""
+    out = ["sp"]
+    for p in ARPABET_BASE:
+        if add_default_stress([p])[0] == p:  # a consonant
+            out.append(p)
+        else:
+            out.extend(p + s for s in "012")
+    return out
+
+
+def _pinyin_syllables() -> list:
+    """Every toneless syllable of the packaged pinyin table."""
+    with open(PACKAGED_DATA_DIR / "pinyin_table.tsv", encoding="utf-8") as f:
+        return sorted({ln.rstrip("\n").split("\t")[1] for ln in f
+                       if ln.count("\t") == 1})
+
+
+def _golden_frames(src: Path) -> list:
+    paths = sorted(src.glob("*.json"))
+    if not paths:
+        raise FileNotFoundError(f"no golden pose frames under {src}")
+    return paths
+
+
+def write_golden_assets(root: str, seed: int = 0) -> str:
+    """Write a data directory laid out like the reference's under ``root``
+    and return ``root``:
+
+    * fadg0 (clip layout): ``*phoneme_data/VidTIMIT/fadg0.txt`` and
+      ``*phoneme_data/VidTIMIT/fadg0/keypoints_fadg0/golden_<fff>_keypoints
+      .json``, every English symbol mapped to a seeded golden frame;
+    * henan (flat layout): ``dict_henan.txt`` and
+      ``*pinyin_data/henan/keypoints_henan/<fffff>_keypoints.json``, every
+      toneless syllable of the pinyin table mapped to a seeded frame;
+    * an empty pronouncing dictionary ``aligner/english/dict``, so every
+      word goes through the G2P.
+    """
+    rng = np.random.RandomState(seed)
+    fadg0 = get_profile("fadg0", data_dir=root)
+    henan = get_profile("henan", data_dir=root)
+
+    frames = _golden_frames(GOLDEN_POSE_DIR)
+    os.makedirs(fadg0.keypoints_dir, exist_ok=True)
+    for i, src in enumerate(frames):
+        shutil.copyfile(src, os.path.join(
+            fadg0.keypoints_dir, f"golden_{i:03d}_keypoints.json"))
+    symbols = _english_symbols()
+    rows = rng.randint(0, len(frames), size=len(symbols))
+    with open(fadg0.dict_path, "w") as f:
+        f.writelines(f"{s} golden {r:03d}\n" for s, r in zip(symbols, rows))
+
+    frames = _golden_frames(GOLDEN_HENAN_POSE_DIR)
+    os.makedirs(henan.keypoints_dir, exist_ok=True)
+    for i, src in enumerate(frames):
+        shutil.copyfile(src, os.path.join(
+            henan.keypoints_dir, f"{i:05d}_keypoints.json"))
+    syllables = _pinyin_syllables()
+    rows = rng.randint(0, len(frames), size=len(syllables))
+    with open(henan.dict_path, "w", encoding="utf-8") as f:
+        f.writelines(f"{s} {r}\n" for s, r in zip(syllables, rows))
+
+    dict_dir = os.path.join(root, "aligner", "english")
+    os.makedirs(dict_dir, exist_ok=True)
+    open(os.path.join(dict_dir, "dict"), "w").close()
+    return root

@@ -1,4 +1,4 @@
-"""OpenPose keypoint-JSON reader (counterpart of the loading half of
+"""OpenPose keypoint-JSON codec (counterpart of
 ``text2video_tpu/io/openpose.py``).
 
 The reference consumes and emits OpenPose 1.3 JSON files of the form
@@ -7,15 +7,21 @@ floats], "face_keypoints_2d": [210 floats], "hand_left_keypoints_2d": [63
 floats or empty], ...}]}`` (reference:
 *phoneme_data/VidTIMIT/fadg0/keypoints_fadg0/*.json and keypoint2img.py:70-90).
 
-Each frame keeps its parsed source dict (``raw``) beside the dense tracks,
-so JSON emission, when it is ported, can re-emit it byte-faithfully.
+This codec is byte-faithful on round trip: non-track fields (person_id,
+hands, 3d arrays, version) are carried through verbatim, and values that were
+ints in the source stay ints, so a verbatim re-emit is bit-identical to
+``json.dump`` of the original and a blended re-emit differs only in the
+blended tracks — matching the reference's behavior of mutating only
+``face_keypoints_2d`` / ``pose_keypoints_2d`` inside a deep-copied carrier
+dict (reference: interp_landmarks_motion.py:78-89).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
@@ -78,3 +84,31 @@ def frame_from_raw(raw: Dict[str, Any]) -> KeypointFrame:
 def load_keypoint_frame(path: str) -> KeypointFrame:
     return frame_from_raw(load_keypoint_json(path))
 
+
+def raw_with_tracks(
+    carrier: Dict[str, Any],
+    face: Optional[Sequence] = None,
+    pose: Optional[Sequence] = None,
+    nested: bool = False,
+) -> Dict[str, Any]:
+    """Deep-copy ``carrier`` and replace its face/pose tracks.
+
+    ``nested=True`` reproduces the reference's smoothing-output quirk where
+    a ``(1, N)`` ndarray ``.tolist()`` produces a single-element nested list
+    (reference: ...VidTIMIT_smooth.py:257-258 writes ``ave_fc.tolist()`` of a
+    (1,210) array). Downstream consumers reshape through it transparently.
+    """
+    out = copy.deepcopy(carrier)
+    person = out["people"][0]
+    if face is not None:
+        vals = [float(v) for v in face]
+        person["face_keypoints_2d"] = [vals] if nested else vals
+    if pose is not None:
+        vals = [float(v) for v in pose]
+        person["pose_keypoints_2d"] = [vals] if nested else vals
+    return out
+
+
+def dumps_keypoint_json(raw: Dict[str, Any]) -> str:
+    """The same formatting as the reference's ``json.dump``."""
+    return json.dumps(raw)

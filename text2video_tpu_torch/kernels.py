@@ -3,9 +3,10 @@
 All sources compile with ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface, loaded with ``ctypes``. The build runs at first
 use, into ``build/torch_kernels/<hash>/`` at the root of the checkout, keyed
-by a hash of the sources and flags, so a fresh checkout builds everything
-from its own sources and an unchanged tree reuses the library. A failed
-build raises; nothing falls back to the plain PyTorch versions.
+by a hash of the sources and flags (``buildcache.build_library``), so a
+fresh checkout builds everything from its own sources and an unchanged tree
+reuses the library. A failed build raises; nothing falls back to the plain
+PyTorch versions.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -14,12 +15,12 @@ port on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
+
+from text2video_tpu_torch.buildcache import build_library
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -51,29 +52,11 @@ def build() -> Tuple[Path, str]:
     shared-memory and spill counts per kernel; it is empty for a reused
     build."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
-    lib = out_dir / LIB_NAME
-    if lib.exists():
-        return lib, ""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        capture_output=True,
-        text=True,
+    nvcc = _nvcc()
+    return build_library(
+        BUILD_ROOT, LIB_NAME, sources, NVCC_FLAGS,
+        lambda out: [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources)],
     )
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        errors = "\n".join(ln for ln in log.splitlines() if "error" in ln)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
-                           f"{errors[:4000]}\n...\n{log[-2000:]}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    (out_dir / "build.log").write_text(log)
-    return lib, log
 
 
 def library() -> ctypes.CDLL:

@@ -1,6 +1,5 @@
-"""Pose-synthesis stage: timestamps -> per-frame keypoint tracks
-(counterpart of ``text2video_tpu/pose_stage.py``; JSON emission is not
-ported yet).
+"""Pose-synthesis stage: timestamps -> per-frame keypoint tracks (+ JSONs;
+counterpart of ``text2video_tpu/pose_stage.py``).
 
 Both branches plan on the host with ``plan_pose_track``. ``device=False``
 runs the bit-exact float64 host blend and smoother; ``device=True`` runs the
@@ -11,7 +10,8 @@ torch device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -19,6 +19,10 @@ from text2video_tpu_torch import device as devices
 from text2video_tpu_torch.config import PersonProfile
 from text2video_tpu_torch.frontend.timestamps import Timestamps
 from text2video_tpu_torch.io.dicts import KeypointTable, PoseDictionary
+from text2video_tpu_torch.io.openpose import (
+    dumps_keypoint_json,
+    raw_with_tracks,
+)
 from text2video_tpu_torch.ops.fused_pose import synthesize_and_smooth
 from text2video_tpu_torch.ops.interp import (
     PosePlan,
@@ -76,3 +80,44 @@ class PoseStage:
             face_s, pose_s = smooth_host(face, pose, self.profile.smooth_width)
         return PoseResult(face=face, pose=pose, face_smooth=face_s,
                           pose_smooth=pose_s, plan=plan)
+
+    # ---- JSON emission (parity with the reference's per-frame files) ----
+
+    def emit_pose_raws(self, result: PoseResult) -> List[Dict[str, Any]]:
+        """Interpolation-stage JSON dicts, frame by frame. Verbatim frames
+        re-emit their carrier unchanged (ints stay ints); blended frames
+        carry blended face/pose in the carrier's deep copy."""
+        out = []
+        plan = result.plan
+        for t in range(result.num_frames):
+            carrier = self.table.raws[int(plan.carrier[t])]
+            if plan.verbatim[t]:
+                out.append(carrier)
+            else:
+                out.append(raw_with_tracks(
+                    carrier, face=result.face[t], pose=result.pose[t]))
+        return out
+
+    def emit_smooth_raws(self, result: PoseResult) -> List[Dict[str, Any]]:
+        """Smoothing-stage JSON dicts. The carrier is the interp-stage frame
+        JSON; tracks are written as single-element nested lists, matching the
+        reference's (1,N)-ndarray ``.tolist()`` output
+        (...VidTIMIT_smooth.py:257-258)."""
+        return [
+            raw_with_tracks(interp_raw, face=result.face_smooth[t],
+                            pose=result.pose_smooth[t], nested=True)
+            for t, interp_raw in enumerate(self.emit_pose_raws(result))
+        ]
+
+    def write_jsons(self, result: PoseResult, pose_dir: str,
+                    smooth_dir: Optional[str] = None) -> None:
+        os.makedirs(pose_dir, exist_ok=True)
+        for t, raw in enumerate(self.emit_pose_raws(result)):
+            with open(os.path.join(pose_dir, "%05d.json" % t), "w") as f:
+                f.write(dumps_keypoint_json(raw))
+        if smooth_dir is not None:
+            os.makedirs(smooth_dir, exist_ok=True)
+            for t, raw in enumerate(self.emit_smooth_raws(result)):
+                with open(os.path.join(smooth_dir, "smooth_%05d.json" % t),
+                          "w") as f:
+                    f.write(dumps_keypoint_json(raw))

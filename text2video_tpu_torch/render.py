@@ -8,9 +8,10 @@ frames, previous label maps, step) carried from chunk to chunk in the
 compute dtype. Frames are quantized to uint8 (or converted to YUV420) on the
 device before they go to the host.
 
-Not ported here: Jacobi decoding, ``render_many`` and mesh sharding, and the
-``"dct"`` wire, which exists for the TPU host link; this renderer streams
-YUV420 whatever ``RenderConfig.wire_format`` says.
+``render_many_device`` renders a batch of utterances in one scan (the
+generator step runs at batch B). Not ported here: Jacobi decoding, mesh
+sharding, and the ``"dct"`` wire, which exists for the TPU host link; this
+renderer streams YUV420 whatever ``RenderConfig.wire_format`` says.
 """
 
 from __future__ import annotations
@@ -112,13 +113,20 @@ class Renderer:
         return h2, w2
 
     @torch.inference_mode()
-    def _scan_chunk(self, labels: torch.Tensor,
-                    carry: Carry) -> Tuple[torch.Tensor, Carry]:
-        """labels [B, chunk, H, W, 3] in [-1, 1] -> (frames [B, chunk, H',
+    def _scan_chunk(self, labels: torch.Tensor, carry: Carry,
+                    steps: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, Carry]:
+        """labels [B, chunk, H, W, 3] in [-1, 1] -> (frames [B, steps, H',
         W', 3] in the compute dtype, carry). The label context (current +
         n_frames_ctx - 1 previous maps) is assembled for the whole chunk
-        first; frames before the chunk come from the carry."""
+        first; frames before the chunk come from the carry.
+
+        ``steps`` (default: the whole chunk) runs the generator for the
+        first ``steps`` frames only: the last chunk of an utterance skips
+        its padding frames. The carry is then that of a partial chunk, so
+        only the last chunk may be cut."""
         b, c, h, w, _ = labels.shape
+        steps = c if steps is None else steps
         h2, w2 = self.target_hw(h, w)
         labels = labels.float()
         if (h2, w2) != (h, w):
@@ -141,7 +149,7 @@ class Renderer:
 
         prev = prev_imgs.to(dt)
         frames = []
-        for i in range(c):
+        for i in range(steps):
             has_prev = torch.full((b,), float(step + i > 0),
                                   device=labels.device)
             frame, _, _ = self.generator(labels_ctx_t[i], prev, has_prev)
@@ -152,34 +160,41 @@ class Renderer:
             [lab_t[c - 1 - m] for m in range(n_ctx - 1)], dim=-1)
         return torch.stack(frames, dim=1), (prev, new_prev_labels, step + c)
 
-    def _render_chunk(self, labels: torch.Tensor,
-                      carry: Carry) -> Tuple[torch.Tensor, Carry]:
-        frames, carry = self._scan_chunk(labels, carry)
+    def _render_chunk(self, labels: torch.Tensor, carry: Carry,
+                      steps: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, Carry]:
+        frames, carry = self._scan_chunk(labels, carry, steps)
         # Quantize in f32 (a bf16 ulp at 255 is 1); the cast truncates.
         frames_u8 = torch.clamp((frames.float() + 1.0) * 127.5, 0.0,
                                 255.0).to(torch.uint8)
         return frames_u8, carry
 
-    def generate_device(self, labels_norm: torch.Tensor) -> List[torch.Tensor]:
-        """[B, T, H, W, 3] labels in [-1, 1] -> list of [B, time_bucket, H',
-        W', 3] uint8 device tensors (the last chunk padded)."""
-        b, t, h, w, _ = labels_norm.shape
+    def generate_device(self, labels_u8: torch.Tensor) -> List[torch.Tensor]:
+        """[B, T, H, W, 3] uint8 label maps (scaled to [-1, 1] a chunk at a
+        time) -> list of [B, time_bucket, H', W', 3] uint8 device tensors
+        (the last chunk padded with zero frames, which the generator does
+        not run for): one generator step per frame."""
+        if labels_u8.dtype != torch.uint8:
+            raise TypeError(f"labels must be uint8, got {labels_u8.dtype}")
+        b, t, h, w, _ = labels_u8.shape
         carry = self.init_carry(b, *self.target_hw(h, w))
         chunks = []
         for lo in range(0, t, self.time_bucket):
-            chunk = labels_norm[:, lo: lo + self.time_bucket]
-            pad = self.time_bucket - chunk.shape[1]
+            chunk = (labels_u8[:, lo: lo + self.time_bucket].float()
+                     / 127.5 - 1.0)
+            steps = chunk.shape[1]
+            pad = self.time_bucket - steps
             if pad:
                 chunk = F.pad(chunk, (0, 0, 0, 0, 0, 0, 0, pad))
-            frames_u8, carry = self._render_chunk(chunk, carry)
-            chunks.append(frames_u8)
+            frames_u8, carry = self._render_chunk(chunk, carry, steps)
+            chunks.append(F.pad(frames_u8, (0, 0, 0, 0, 0, 0, 0, pad)))
         return chunks
 
     def render(self, labels_u8: np.ndarray) -> np.ndarray:
         """[T, H, W, 3] uint8 label maps -> [T, H', W', 3] uint8 frames."""
         t = min(labels_u8.shape[0], self.config.max_frames)
-        labels = torch.as_tensor(labels_u8[None, :t], device=self.device)
-        chunks = self.generate_device(labels.float() / 127.5 - 1.0)
+        chunks = self.generate_device(
+            torch.as_tensor(labels_u8[None, :t], device=self.device))
         host = [c[0].cpu().numpy() for c in chunks]
         return np.concatenate(host, axis=0)[:t]
 
@@ -191,17 +206,16 @@ class Renderer:
         h, w = label_chunks[0].shape[1:3]
         carry = self.init_carry(1, *self.target_hw(h, w))
         outs = []
-        done = 0
+        rem = min(t, self.config.max_frames)
         for chunk in label_chunks:
-            if done >= self.config.max_frames:
+            if rem <= 0:
                 break
+            steps = min(chunk.shape[0], rem)
+            rem -= steps
             labels = chunk.float()[None] / 127.5 - 1.0
-            frames_u8, carry = self._render_chunk(labels, carry)
+            frames_u8, carry = self._render_chunk(labels, carry, steps)
             outs.append(frames_u8)
-            done += chunk.shape[0]
-        t = min(t, self.config.max_frames, done)
-        host = [c[0].cpu().numpy() for c in outs]
-        return np.concatenate(host, axis=0)[:t]
+        return np.concatenate([c[0].cpu().numpy() for c in outs], axis=0)
 
     def _normalize_chunks(self, label_chunks) -> List[torch.Tensor]:
         """Make every chunk at least n_frames_ctx-1 frames long for the
@@ -251,8 +265,8 @@ class Renderer:
             n = min(chunk.shape[0], rem)
             rem -= n
             labels = chunk.float()[None] / 127.5 - 1.0
-            frames, carry = self._scan_chunk(labels, carry)
-            planes = [p[:n] for p in rgb_norm_to_yuv420(frames[0])]
+            frames, carry = self._scan_chunk(labels, carry, n)
+            planes = rgb_norm_to_yuv420(frames[0])
             copies = [_to_host_async(p) for p in planes]
             if pending is not None:
                 yield self._wait_host(pending, span)
@@ -267,3 +281,18 @@ class Renderer:
                 if event is not None:
                     event.synchronize()
         return tuple(host.numpy() for host, _ in copies)
+
+    def render_many(self, labels_u8: np.ndarray) -> np.ndarray:
+        """[B, T, H, W, 3] uint8 host labels -> [B, T, H', W', 3] uint8
+        frames: the utterances share one scan, each generator step at
+        batch B."""
+        return self.render_many_device(
+            torch.as_tensor(labels_u8, device=self.device))
+
+    def render_many_device(self, labels_u8: torch.Tensor) -> np.ndarray:
+        """Like :meth:`render_many`, for [B, T, H, W, 3] uint8 labels already
+        on the device (e.g. stacked rasterizer output): the label side never
+        goes through the host."""
+        t = min(labels_u8.shape[1], self.config.max_frames)
+        chunks = self.generate_device(labels_u8[:, :t])
+        return torch.cat(chunks, dim=1)[:, :t].cpu().numpy()

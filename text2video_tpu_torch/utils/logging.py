@@ -13,7 +13,7 @@ class JsonLogger:
     """Writes one JSON object per event: {"ts", "event", **fields}."""
 
     def __init__(self, stream: Optional[TextIO] = None, path: Optional[str] = None):
-        self._stream = stream or sys.stderr
+        self._stream = stream  # None: sys.stderr as it is at each event
         self._file = open(path, "a") if path else None
 
     def log(self, event: str, **fields: Any) -> None:
@@ -23,7 +23,7 @@ class JsonLogger:
             self._file.write(line + "\n")
             self._file.flush()
         else:
-            print(line, file=self._stream)
+            print(line, file=self._stream or sys.stderr)
 
     def close(self) -> None:
         if self._file is not None:
