@@ -15,7 +15,13 @@ port's ``tts``, ``audio``, ``tts-chinese`` and ``audio-batch`` commands, on
 a data directory written from the golden frames and that renderer saved as
 a checkpoint at height 384: text becomes an mp4 through the frontend (TTS,
 forced alignment) and both kernels, and four utterances render as one
-batch, held at frame 0 against batch 1.
+batch, held at frame 0 against batch 1. Then Jacobi decoding (``--decode
+jacobi``: the 256-frame utterance in three sweeps of four 64-frame generator
+calls, kernel B1 at batch 64, held against the scan; and the CLI's ``tts``
+that way), and training: ``cli.main(["train-gan", ...])`` takes steps at
+full width on a data set written from the golden frames, resumes, and its
+directory renders; a tiny f32 model's gradients on the card are held against
+the CPU's; one step runs at 896x512, batch 4 x clip 8.
 
 Prints one line per phase, then a JSON line with each kernel's launches on
 the serving path (and on each CLI path), its error against the plain
@@ -52,6 +58,8 @@ B1_SHAPES = [  # (shape, kernel scale or None for lecun)
     ((1, 48, 64, 512), None),   # the scan at 512x384 (batch 1)
     ((4, 48, 64, 512), None),   # batch 4 (audio-batch)
     ((1, 48, 88, 512), None),   # henan at 384x704 (tts-chinese)
+    ((64, 48, 64, 512), None),  # a Jacobi sweep's full bucket
+    ((32, 48, 64, 512), None),  # the tail bucket of a 224-frame clip
     ((2, 16, 24, 64), None),
     ((1, 12, 28, 128), 0.05),   # odd sizes of the JAX package's tests
     ((1, 8, 112, 128), 0.05),
@@ -65,6 +73,8 @@ B2_TOL = 2e-3
 GEN_TOL = 1e-3
 N_FRAMES = 256  # ~10 s at 25 fps
 CHUNK = 64
+JACOBI_SWEEPS = 3
+GRAD_TOL = 1e-4  # card against CPU gradients, of a tensor's largest
 
 
 def phase(name: str, **fields) -> None:
@@ -229,20 +239,16 @@ def first_diff(a: np.ndarray, b: np.ndarray) -> int:
     return int(ne[0]) if len(ne) else -1
 
 
-def cli_phases(tmp: str, renderer, fps_batch1: float) -> dict:
+def cli_phases(tmp: str, data: str, ckpt: str, renderer,
+               fps_batch1: float) -> dict:
     """The CLI's tts, audio, tts-chinese and audio-batch commands, each
-    through ``cli.main`` with the golden data directory and ``renderer``
-    saved as a checkpoint at height 384. Returns the launches by path."""
-    from text2video_tpu_torch.checkpoints import save_renderer
+    through ``cli.main`` with the golden data directory ``data`` and
+    ``renderer`` saved as the checkpoint ``ckpt`` at height 384. Returns the
+    launches by path."""
     from text2video_tpu_torch.frontend.audio import save_wav
     from text2video_tpu_torch.frontend.tts import FormantTTS
-    from text2video_tpu_torch.golden import write_golden_assets
-    from text2video_tpu_torch.ops import fused_resblock
     from text2video_tpu_torch.render import Renderer
 
-    data = write_golden_assets(os.path.join(tmp, "data"))
-    ckpt = os.path.join(tmp, "ckpt")
-    save_renderer(renderer, ckpt, height=384)
     out_dir = os.path.join(tmp, "out")
     common = ["--data-dir", data, "--gan-checkpoint", ckpt, "--out", out_dir,
               "--pose-device", "device"]
@@ -290,13 +296,8 @@ def cli_phases(tmp: str, renderer, fps_batch1: float) -> dict:
         path = os.path.join(tmp, f"utt{i}.wav")
         save_wav(path, FormantTTS().synthesize(text, 16000), 16000)
         pairs += [text, path]
-    shapes, seen = set(), {}
-    kernel_fn = fused_resblock.conv3x3_stats
+    seen = {}
     render_fn = Renderer.render_many_device
-
-    def recording(x, *args, **kw):
-        shapes.add(tuple(x.shape))
-        return kernel_fn(x, *args, **kw)
 
     def recording_render(model, labels_u8):
         frames = render_fn(model, labels_u8)
@@ -304,15 +305,14 @@ def cli_phases(tmp: str, renderer, fps_batch1: float) -> dict:
         return frames
 
     torch.cuda.reset_peak_memory_stats()
-    fused_resblock.conv3x3_stats = recording
     Renderer.render_many_device = recording_render
     try:
-        outs, wall, n = run_cli([
-            "audio-batch", "fadg0", "--data-dir", data, "--gan-checkpoint",
-            ckpt, "--out", os.path.join(tmp, "batch"), "--pose-device",
-            "device", *pairs])
+        with RecordB1Shapes() as shapes:
+            outs, wall, n = run_cli([
+                "audio-batch", "fadg0", "--data-dir", data,
+                "--gan-checkpoint", ckpt, "--out", os.path.join(tmp, "batch"),
+                "--pose-device", "device", *pairs])
     finally:
-        fused_resblock.conv3x3_stats = kernel_fn
         Renderer.render_many_device = render_fn
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     lengths = [o["frames"] for o in outs]
@@ -396,6 +396,354 @@ def cli_phases(tmp: str, renderer, fps_batch1: float) -> dict:
     return by_path
 
 
+class RecordB1Shapes:
+    """While active, ``fused_resblock.conv3x3_stats`` records the shapes it
+    is called at (and calls through)."""
+
+    def __enter__(self):
+        from text2video_tpu_torch.ops import fused_resblock
+
+        self.module, self.fn = fused_resblock, fused_resblock.conv3x3_stats
+        self.shapes = set()
+
+        def recording(x, *args, **kw):
+            self.shapes.add(tuple(x.shape))
+            return self.fn(x, *args, **kw)
+
+        fused_resblock.conv3x3_stats = recording
+        return self.shapes
+
+    def __exit__(self, *exc):
+        self.module.conv3x3_stats = self.fn
+
+
+def timed(fn):
+    """(result, wall seconds) of ``fn()`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def jacobi_phases(data: str, ckpt: str, out_dir: str, scan_renderer,
+                  labels: torch.Tensor) -> dict:
+    """Jacobi decoding through ``load_renderer(decode_mode="jacobi")`` on the
+    slice's 256 label maps (``labels`` [256, 384, 512, 3] uint8 on the
+    card), against the scan of the same checkpoint in the same call; then
+    the CLI's ``tts --decode jacobi``. Returns the launches by path."""
+    from text2video_tpu_torch.checkpoints import load_renderer
+    from text2video_tpu_torch.config import get_profile
+    from text2video_tpu_torch.ops import fused_pose, fused_resblock
+
+    profile = get_profile("fadg0", data_dir=data)
+    t = labels.shape[0]
+    chunks = [labels[lo: lo + CHUNK] for lo in range(0, t, CHUNK)]
+    res_ch = scan_renderer.generator.heads.kernel.shape[2] * 8
+
+    def jacobi(sweeps):
+        r = load_renderer(ckpt, profile, decode_mode="jacobi",
+                          jacobi_sweeps=sweeps)
+        check(r.device.type == "cuda" and r.time_bucket == CHUNK,
+              f"jacobi renderer on {r.device}, bucket {r.time_bucket}")
+        return r
+
+    scan, scan_s = timed(
+        lambda: scan_renderer.render_from_device_chunks(chunks, t))
+    jac = jacobi(JACOBI_SWEEPS)
+    jac.render_from_device_chunks(chunks[:1], CHUNK)  # warm the batch-64 path
+    # The counted run.
+    torch.cuda.reset_peak_memory_stats()
+    fused_resblock.launches = 0
+    fused_pose.launches = 0
+    with RecordB1Shapes() as shapes:
+        frames, jac_s = timed(
+            lambda: jac.render_from_device_chunks(chunks, t))
+    launches = {"conv3x3_stats": fused_resblock.launches,
+                "synthesize_and_smooth": fused_pose.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_buckets = -(-t // CHUNK)
+    check(launches["conv3x3_stats"] == 18 * n_buckets * JACOBI_SWEEPS,
+          f"jacobi: B1 launched {launches['conv3x3_stats']} times, not 18 x "
+          f"{n_buckets} buckets x {JACOBI_SWEEPS} sweeps")
+    check(shapes == {(CHUNK, 48, 64, res_ch)},
+          f"jacobi: B1 shapes {sorted(shapes)}")
+    check(frames.shape == scan.shape == (t, 384, 512, 3)
+          and frames.dtype == np.uint8, f"jacobi frames {frames.shape}")
+    diff = np.abs(frames[:3].astype(int) - scan[:3].astype(int))
+    check(diff[0].max() <= 1 and diff.max() <= 2,
+          f"jacobi vs scan: frame 0 max |diff| {diff[0].max()}, frames 0-2 "
+          f"{diff.max()}")
+    check(frames.std() > 1.0, "jacobi frames are constant")
+    psnrs = {JACOBI_SWEEPS: psnr(frames, scan)}
+    seconds = {JACOBI_SWEEPS: jac_s}
+    for k in (1, 2):
+        fewer = jacobi(k)
+        out, seconds[k] = timed(
+            lambda: fewer.render_from_device_chunks(chunks, t))
+        psnrs[k] = psnr(out, scan)
+    # Where a sweep's device time goes: one sweep under the profiler.
+    one = jacobi(1)
+    busy, n_kernels, top = device_profile(
+        lambda: one.render_from_device_chunks(chunks, t), 1)
+    # A short clip decoded to the end: 8 frames, 8 sweeps, one batch of 8
+    # against the scan's batch 1.
+    short = labels[:8].cpu().numpy()
+    jac8 = jacobi(8).render_jacobi(short, sweeps=8)
+    scan8 = scan_renderer.render(short)
+    phase("jacobi", frames=t, sweeps=JACOBI_SWEEPS, bucket=CHUNK,
+          seconds=jac_s, fps=t / jac_s, scan_seconds=scan_s,
+          scan_fps=t / scan_s, seconds_by_sweeps=json.dumps(seconds),
+          device_ms_per_sweep=busy, kernels_per_sweep=n_kernels,
+          top_ms_launches_per_sweep=top, peak_mem_gib=peak_gib,
+          b1_launches=launches["conv3x3_stats"], b1_shapes=sorted(shapes),
+          psnr_vs_scan_db_by_sweeps=json.dumps(psnrs),
+          frame0_max_diff=int(diff[0].max()),
+          frames012_max_diff=int(diff.max()),
+          first_diff_frame=first_diff(frames, scan),
+          clip8_sweeps8_first_diff=first_diff(jac8, scan8),
+          clip8_sweeps8_psnr_db=psnr(jac8, scan8))
+    by_path = {"jacobi": launches}
+
+    sweeps = 2
+    with RecordB1Shapes() as shapes:
+        out, wall, n = run_cli([
+            "tts", EN_TEXT, "fadg0", "f", "--data-dir", data,
+            "--gan-checkpoint", ckpt, "--out", out_dir, "--pose-device",
+            "device", "--decode", "jacobi", "--sweeps", str(sweeps)])
+    check_mp4(out, (384, 512))
+    full, tail = divmod(out["frames"], CHUNK)
+    check(n["conv3x3_stats"] == 18 * (full + bool(tail)) * sweeps
+          and n["synthesize_and_smooth"] == 1,
+          f"cli_tts_jacobi: launches {n} for {out['frames']} frames")
+    check(shapes == {(b, 48, 64, res_ch) for b in (CHUNK, tail) if b},
+          f"cli_tts_jacobi: B1 shapes {sorted(shapes)}")
+    phase("cli_tts_jacobi", frames=out["frames"], sweeps=sweeps, wall_s=wall,
+          stage_seconds=json.dumps(out["stage_seconds"]),
+          b1_launches=n["conv3x3_stats"], b1_shapes=sorted(shapes),
+          b2_launches=n["synthesize_and_smooth"])
+    by_path["cli_tts_jacobi"] = n
+    return by_path
+
+
+def train_phases(tmp: str, labels: torch.Tensor) -> dict:
+    """``train-gan`` through ``cli.main`` at full width on a data set written
+    from the golden frames (steps, resume, the directory as a renderer
+    checkpoint, ``jacobi_quality`` on it, three variants of a step), a tiny
+    f32 model's gradients on the card against the CPU's, and one step at
+    896x512. Returns the launches of the training path (none: training runs
+    plain convs, as in the JAX package)."""
+    from text2video_tpu_torch import cli
+    from text2video_tpu_torch.checkpoints import (
+        STATE_NAME,
+        latest_step_dir,
+        load_renderer,
+    )
+    from text2video_tpu_torch.config import get_profile
+    from text2video_tpu_torch.golden import write_training_assets
+    from text2video_tpu_torch.ops import fused_resblock
+    from text2video_tpu_torch.tools import jacobi_quality
+    from text2video_tpu_torch.train import loop, trainer
+
+    batch_size, clip_len = 2, 8
+    images, keypoints = write_training_assets(
+        os.path.join(tmp, "train"), n_frames=24, canvas=(512, 384))
+    ckpt = os.path.join(tmp, "gan")
+    argv = ["train-gan", "--images", images, "--keypoints", keypoints,
+            "--ckpt", ckpt, "--width", "512", "--height", "384",
+            "--clip-len", str(clip_len), "--batch-size", str(batch_size)]
+
+    # Every step the loop takes is timed and its metrics read, through a
+    # wrapper around the step the loop builds; ``profile_next`` runs the next
+    # step under the profiler.
+    records, profiles, profile_next = [], [], []
+    make_step = loop.make_train_step
+
+    def recording_make(cfg):
+        step = make_step(cfg)
+
+        def recorded(state, batch):
+            if profile_next and profile_next.pop():
+                out = []
+                profiles.append(device_profile(
+                    lambda: out.append(step(state, batch)), 1))
+                (state, metrics), seconds = out[0], float("nan")
+            else:
+                (state, metrics), seconds = timed(lambda: step(state, batch))
+            records.append((seconds, {k: float(v)
+                                      for k, v in metrics.items()}))
+            return state, metrics
+
+        return recorded
+
+    def train(extra, steps):
+        """``train-gan`` with ``extra`` for ``steps`` steps: (the step the
+        run ended at, this run's (seconds, metrics) records)."""
+        del records[:]
+        out, _, n = run_cli(argv + ["--steps", str(steps)] + extra)
+        check(n["conv3x3_stats"] == 0 and n["synthesize_and_smooth"] == 0,
+              f"train-gan launched an inference kernel: {n}")
+        check(len(records) == steps, f"{len(records)} steps recorded")
+        for _, metrics in records:
+            check(set(metrics) == set(trainer.METRICS)
+                  and all(np.isfinite(v) for v in metrics.values()),
+                  f"train-gan metrics not finite: {metrics}")
+        check(out["ckpt"] == ckpt, f"train-gan printed {out}")
+        return out["steps"], list(records)
+
+    loop.make_train_step = recording_make
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        (step_n, recs), wall = timed(lambda: train(["--device-data"], 3))
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(step_n == 3, f"train-gan ended at step {step_n}")
+        # G and every discriminator moved away from the seed's init.
+        cfg = trainer.TrainConfig(height=384, width=512)
+        init = trainer.create_trainer_state(cfg, seed=0)
+        saved = torch.load(os.path.join(latest_step_dir(ckpt), STATE_NAME),
+                           map_location="cuda", weights_only=True)
+        check(saved["step"] == 3, f"saved step {saved['step']}")
+        moved = {"generator": 0.0}
+        for k, v in init.generator.state_dict().items():
+            moved["generator"] += float(
+                (v - saved["generator"][k]).abs().sum())
+        for k, v in init.discriminators.state_dict().items():
+            name = k.split(".")[0]
+            moved[name] = moved.get(name, 0.0) + float(
+                (v - saved["discriminators"][k]).abs().sum())
+        check(set(moved) == {"generator", "image", "face", "temporal",
+                             "temporal2"} and all(
+            np.isfinite(v) and v > 0 for v in moved.values()),
+            f"parameters did not move: {moved}")
+        del init, saved
+        step_s = [s for s, _ in recs[1:]]
+        phase("train_gan", hw="512x384", batch=batch_size, clip_len=clip_len,
+              steps=step_n, wall_s=wall, first_step_s=recs[0][0],
+              step_s=step_s,
+              clip_frames_per_s=batch_size * clip_len / float(
+                  np.median(step_s)),
+              peak_mem_gib=peak_gib, metrics_last=json.dumps(recs[-1][1]),
+              moved_abs_sum=json.dumps(moved), b1_launches=0)
+
+        # A second call resumes; its one step runs under the profiler.
+        profile_next.append(True)
+        step_n, recs = train(["--device-data"], 1)
+        check(step_n == 4, f"resumed run ended at step {step_n}, not 4")
+        busy, n_kernels, top = profiles[-1]
+        phase("train_gan_resume", steps=step_n, device_ms_per_step=busy,
+              kernels_per_step=n_kernels, top_ms_launches_per_step=top)
+        variants = {}
+        for name, extra in (
+                ("grad_accum_2", ["--device-data", "--grad-accum", "2"]),
+                ("lambda_adv_0", ["--device-data", "--lambda-adv", "0"]),
+                ("host_data", [])):
+            torch.cuda.reset_peak_memory_stats()
+            step_n, recs = train(extra, 2)
+            variants[name] = dict(
+                step_s=recs[1][0], g_loss=recs[1][1]["g_loss"],
+                d_loss=recs[1][1]["d_loss"],
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        check(step_n == 10, f"the variants ended at step {step_n}, not 10")
+        check(variants["lambda_adv_0"]["d_loss"] == 0.0,
+              f"lambda_adv=0 gave d_loss {variants['lambda_adv_0']}")
+        phase("train_gan_variants", second_step_of_each=json.dumps(variants))
+    finally:
+        loop.make_train_step = make_step
+
+    # The training directory is a renderer checkpoint: 8 frames through B1.
+    renderer = load_renderer(ckpt, get_profile("fadg0"))
+    fused_resblock.launches = 0
+    frames = renderer.render_from_device_chunks([labels[:CHUNK]], 8)
+    n_b1 = fused_resblock.launches
+    check(n_b1 == 18 * 8,
+          f"trained renderer: B1 launched {n_b1} times for 8 frames")
+    check(frames.shape == (8, 384, 512, 3) and frames.std() > 0,
+          f"trained renderer frames {frames.shape}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = jacobi_quality.main(["--ckpt", ckpt, "--images", images,
+                                  "--keypoints", keypoints, "--clip-len",
+                                  "16", "--sweeps", "1,2,3,4"])
+    quality = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and quality["frames"] == 16 and all(
+        np.isfinite(v) for v in quality["psnr_vs_scan"].values()),
+        f"jacobi_quality: {quality}")
+    phase("train_gan_renders", frames=8, b1_launches=n_b1,
+          jacobi_quality=json.dumps(quality))
+    del renderer
+
+    # ---- the autograd path on the card against the CPU ----------------------
+    tiny = trainer.TrainConfig(height=32, width=32, face_crop=8, base_ch=8,
+                               n_blocks=1, d_base_ch=8, use_vgg=False,
+                               dtype=torch.float32)
+    rng = np.random.RandomState(0)
+    host_batch = {
+        "labels": rng.rand(2, 5, 32, 32, 3).astype(np.float32) * 2 - 1,
+        "reals": rng.rand(2, 5, 32, 32, 3).astype(np.float32) * 2 - 1,
+        "face_centers": (rng.rand(2, 5, 2) * 32).astype(np.float32),
+    }
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        state = trainer.create_trainer_state(tiny, seed=0, device=dev)
+        with torch.no_grad():  # flows of a few pixels, as a trained model's
+            state.generator.heads.kernel.mul_(0.1)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+        state, metrics = trainer.make_train_step(tiny)(state, batch)
+        grads[dev] = (
+            {"G." + k: p.grad.cpu()
+             for k, p in state.generator.named_parameters()}
+            | {"D." + k: p.grad.cpu()
+               for k, p in state.discriminators.named_parameters()},
+            {k: float(v) for k, v in metrics.items()})
+    worst = {}
+    for net in ("G.", "D."):
+        names = [k for k in grads["cpu"][0] if k.startswith(net)]
+        # A bias in front of an instance norm has a zero gradient, computed
+        # as float noise: such a tensor is held to a hundredth of the
+        # network's largest gradient.
+        floor = 1e-2 * max(float(grads["cpu"][0][k].abs().max())
+                           for k in names)
+        check(floor > 0, f"{net} gradients on the CPU are all zero")
+        worst[net] = max(
+            float((grads["cuda"][0][k] - grads["cpu"][0][k]).abs().max())
+            / max(float(grads["cpu"][0][k].abs().max()), floor)
+            for k in names)
+    check(max(worst.values()) <= GRAD_TOL,
+          f"card vs CPU gradients, relative to each tensor's largest: {worst}")
+    phase("train_grad_card", hw="32x32", base_ch=8, n_blocks=1,
+          worst_rel_err=json.dumps(worst), tol=GRAD_TOL,
+          g_loss_card=grads["cuda"][1]["g_loss"],
+          g_loss_cpu=grads["cpu"][1]["g_loss"])
+
+    # ---- one step at 896x512, batch 4 x clip 8, reconstruction only ---------
+    big = trainer.TrainConfig(height=512, width=896, lambda_adv=0.0,
+                              grad_accum=1)
+    check(trainer.safe_grad_accum(big, 4, 8) == 1,
+          "safe_grad_accum raised the accumulation at 896x512")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {
+        "labels": torch.rand((4, 8, 512, 896, 3), device="cuda",
+                             generator=g) * 2 - 1,
+        "reals": torch.rand((4, 8, 512, 896, 3), device="cuda",
+                            generator=g) * 2 - 1,
+        "face_centers": torch.full((4, 8, 2), 256.0, device="cuda"),
+    }
+    state = trainer.create_trainer_state(big, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    (state, metrics), seconds = timed(
+        lambda: trainer.make_train_step(big)(state, batch))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    finite = all(np.isfinite(v) for v in metrics.values()) and all(
+        bool(torch.isfinite(p.grad).all())
+        for p in state.generator.parameters())
+    phase("train_896", hw="896x512", batch=4, clip_len=8, lambda_adv=0,
+          grad_accum=1, finite=finite, seconds=seconds,
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+          metrics=json.dumps(metrics))
+    check(finite, f"train step at 896x512 is not finite: {metrics}")
+    return {"train_gan": {"conv3x3_stats": 0, "synthesize_and_smooth": 0}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
@@ -424,7 +772,7 @@ def main() -> None:
 
     # ---- 2. B1 against its plain version -------------------------------------
     gen = torch.Generator().manual_seed(0)
-    b1 = {}
+    b1, b1_b64 = {}, {}
     for shape, kscale in B1_SHAPES:
         c = shape[-1]
         x32 = torch.randn(shape, generator=gen).to(dev)
@@ -453,15 +801,20 @@ def main() -> None:
                     + 2 * 4 * shape[0] * c,
                     2.0 * npx * c * 9 * c,
                     PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
-                ms = graph_ms(lambda: fused_resblock.conv3x3_stats(x, k, b))
+                # A call at batch 64 takes milliseconds: fewer in a graph.
+                calls = 20 if shape[0] <= 4 else 4
+                ms = graph_ms(lambda: fused_resblock.conv3x3_stats(x, k, b),
+                              calls=calls)
                 plain_ms = graph_ms(
-                    lambda: fused_resblock.conv3x3_stats_plain(x, k, b))
+                    lambda: fused_resblock.conv3x3_stats_plain(x, k, b),
+                    calls=calls)
                 # Yardstick, never called by the port: cuDNN's conv of the
                 # same shape, channels-last, zero padding, no statistics.
                 xc = x.permute(0, 3, 1, 2)
                 wc = k.permute(3, 2, 0, 1).contiguous(
                     memory_format=torch.channels_last)
-                library_ms = graph_ms(lambda: F.conv2d(xc, wc, padding=1))
+                library_ms = graph_ms(lambda: F.conv2d(xc, wc, padding=1),
+                                      calls=calls)
                 fields.update(ms=ms, plain_ms=plain_ms,
                               library_ms=library_ms, bound_ms=bound_ms,
                               bound_by=bound_by, bound_share=bound_ms / ms)
@@ -479,7 +832,19 @@ def main() -> None:
                     fields["wrapper_host_us"] = (
                         time.perf_counter() - t0) / 200 * 1e6
                     torch.cuda.synchronize()
-            phase("B1", **fields)
+            if dt == torch.bfloat16 and shape[0] == CHUNK:
+                # 128 x 128 tiles over the persistent blocks, one per SM.
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                tiles = npx // 128 * (c // 128)
+                b1_b64 = dict(max_abs_err=errs[0], ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=library_ms)
+                phase("B1_b64", tiles=tiles, sms=sms, waves=tiles / sms,
+                      tflops=2.0 * npx * c * 9 * c / ms / 1e9, **fields)
+            else:
+                phase("B1", **fields)
+            del x, k, y, y0
+        del x32, k32
 
     # ---- 3. B2 against its plain version and the host smoother ---------------
     from text2video_tpu_torch.golden import golden_pose_inputs
@@ -639,15 +1004,30 @@ def main() -> None:
           kernels_per_frame=n_kernels, top_ms_launches_per_frame=top)
     # ---- 6. the user's entry points: the CLI, text (or audio) in, mp4 out --
     pipeline.PoseStage = port_stage  # the CLI runs unpatched from here on
+    from text2video_tpu_torch.checkpoints import save_renderer
+    from text2video_tpu_torch.golden import write_golden_assets
+
     by_path = {"slice": launches}
     with tempfile.TemporaryDirectory() as tmp:
-        by_path.update(cli_phases(tmp, renderer, fps_batch1=float(
+        data = write_golden_assets(os.path.join(tmp, "data"))
+        ckpt = os.path.join(tmp, "ckpt")
+        save_renderer(renderer, ckpt, height=384)
+        by_path.update(cli_phases(tmp, data, ckpt, renderer, fps_batch1=float(
             np.median(rates))))
+        # ---- 7. Jacobi decoding, 8. training -------------------------------
+        by_path.update(jacobi_phases(data, ckpt, os.path.join(tmp, "jacobi"),
+                                     renderer, labels[0]))
+        del renderer
+        torch.cuda.empty_cache()
+        by_path.update(train_phases(tmp, labels[0]))
+    check(all(by_path[p]["conv3x3_stats"] > 0 for p in by_path
+              if p != "train_gan"),
+          f"B1 was not launched on a serving path: {by_path}")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "text2video_tpu"))
+        "jax", "jaxlib", "flax", "optax", "orbax", "text2video_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
-    # ---- 7. the card, 8. the result -----------------------------------------
+    # ---- 9. the card, 10. the result ----------------------------------------
     print(json.dumps({"kernels": [
         {"name": "conv3x3_stats", "route": "cuda",
          "source": "text2video_tpu_torch/csrc/conv3x3_stats.cu",
@@ -655,7 +1035,8 @@ def main() -> None:
          "launches": launches["conv3x3_stats"],
          "launches_per_frame": launches["conv3x3_stats"] / N_FRAMES,
          "launches_by_path": {k: v["conv3x3_stats"]
-                              for k, v in by_path.items()}, **b1},
+                              for k, v in by_path.items()},
+         "batch64": b1_b64, **b1},
         {"name": "synthesize_and_smooth", "route": "cuda",
          "source": "text2video_tpu_torch/csrc/fused_pose.cu",
          "replaces": "text2video_tpu/ops/fused_pose.py:46",

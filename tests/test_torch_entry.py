@@ -198,9 +198,12 @@ def test_checkpoint_round_trip(tmp_path):
     a, b = src.generator.state_dict(), r.generator.state_dict()
     assert a.keys() == b.keys()
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(NotImplementedError):
+    rj = load_renderer(str(tmp_path / "ckpt"), tconfig.get_profile("henan"),
+                       decode_mode="jacobi", jacobi_sweeps=5, device="cpu")
+    assert (rj.config.decode_mode, rj.config.jacobi_sweeps) == ("jacobi", 5)
+    with pytest.raises(ValueError, match="decode_mode"):
         load_renderer(str(tmp_path / "ckpt"), tconfig.get_profile("henan"),
-                      decode_mode="jacobi", device="cpu")
+                      decode_mode="parallel", device="cpu")
 
 
 def _cli_json(capsys, argv):
@@ -237,6 +240,54 @@ def test_cli_with_checkpoint_on_cpu(capsys, tmp_path, data_dir, command, text,
     n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
     cap.release()
     assert ok and first.shape[:2] == hw and n == out["frames"]
+
+
+@pytest.mark.parametrize("command,text,person", [
+    ("tts", EN_TEXT, "fadg0"), ("audio", EN_TEXT, "fadg0")])
+def test_cli_jacobi_decode_on_cpu(capsys, tmp_path, data_dir, command, text,
+                                  person):
+    """``--decode jacobi --sweeps k``: the generator runs ``time_bucket``
+    frames a call, k times over the timeline, and the mp4 holds the frames
+    the run reports; the scan's run of the same text has as many."""
+    import cv2
+
+    from text2video_tpu_torch.models.generator import CompositeGenerator
+
+    _tiny_checkpoint(tmp_path / "ckpt")
+    argv = [command, text, person, "--data-dir", data_dir, "--gan-checkpoint",
+            str(tmp_path / "ckpt"), "--device", "cpu"]
+    if command == "audio":
+        from text2video_tpu_torch.frontend.tts import FormantTTS
+
+        wav = str(tmp_path / "u.wav")
+        save_wav(wav, FormantTTS().synthesize(text, SR), SR)
+        argv += ["--wav", wav]
+    scan = _cli_json(capsys, argv + ["--out", str(tmp_path / "scan")])
+    batches = []
+    forward = CompositeGenerator.forward
+
+    def counting(self, labels, prev_imgs, has_prev):
+        batches.append(labels.shape[0])
+        return forward(self, labels, prev_imgs, has_prev)
+
+    CompositeGenerator.forward = counting
+    try:
+        out = _cli_json(capsys, argv + ["--decode", "jacobi", "--sweeps", "2",
+                                        "--out", str(tmp_path / "jacobi")])
+    finally:
+        CompositeGenerator.forward = forward
+    t = out["frames"]
+    assert t == scan["frames"] and t < 64
+    assert batches == [t, t]  # one bucket holds the clip: two sweeps
+    cap = cv2.VideoCapture(out["files"][0])
+    frames = []
+    ok, img = cap.read()
+    while ok:
+        frames.append(img)
+        ok, img = cap.read()
+    cap.release()
+    assert len(frames) == t and frames[0].shape[:2] == (64, 64)
+    assert np.stack(frames).std() > 1.0
 
 
 @pytest.mark.parametrize("pose_device", ["host", "device"])

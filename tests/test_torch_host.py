@@ -225,7 +225,57 @@ def _entry_points(ckpt):
                 aligner=EnglishAligner(None, PronouncingDict({})))),
         "load_renderer": lambda: load_renderer(ckpt, profile),
         "cli": lambda: cli.main(["tts-chinese", "你好", "henan"]),
+        "create_trainer_state": lambda: _tiny_trainer_state(None),
+        "train_gan": lambda: _tiny_train_gan(ckpt),
+        "cli train-gan": lambda: cli.main(
+            ["train-gan", *_training_dirs(ckpt), "--ckpt", ckpt, "--width",
+             "32", "--height", "32", "--source-width", "512",
+             "--source-height", "384", "--clip-len", "4", "--steps", "1"]),
+        "trainer_state_from_flax": lambda: _converted_trainer_state(),
     }
+
+
+TRAIN_KW = dict(height=32, width=32, face_crop=8, base_ch=8, n_blocks=1,
+                d_base_ch=8)
+
+
+def _tiny_trainer_state(device):
+    from text2video_tpu_torch.train.trainer import (
+        TrainConfig,
+        create_trainer_state,
+    )
+
+    return create_trainer_state(TrainConfig(**TRAIN_KW), device=device)
+
+
+def _training_dirs(root):
+    from text2video_tpu_torch.golden import write_training_assets
+
+    images, keypoints = write_training_assets(root + "/train", n_frames=8,
+                                              canvas=(32, 32))
+    return ["--images", images, "--keypoints", keypoints]
+
+
+def _tiny_train_gan(root):
+    from text2video_tpu_torch.train.data import PoseClipDataset
+    from text2video_tpu_torch.train.loop import train_gan
+    from text2video_tpu_torch.train.trainer import TrainConfig
+
+    _, images, _, keypoints = _training_dirs(root)
+    # The dataset is asked for the CPU, so the raise is train_gan's own.
+    dataset = PoseClipDataset(images, keypoints, canvas=(32, 32),
+                              source_canvas=(512, 384), clip_len=4,
+                              device="cpu")
+    return train_gan(dataset, TrainConfig(**TRAIN_KW), steps=1)
+
+
+def _converted_trainer_state():
+    """``convert.trainer_state_from_flax`` builds its state through
+    ``create_trainer_state``: the same default."""
+    from text2video_tpu_torch.convert import trainer_state_from_flax
+    from text2video_tpu_torch.train.trainer import TrainConfig
+
+    return trainer_state_from_flax(None, TrainConfig(**TRAIN_KW))
 
 
 def _saved_checkpoint(tmp_path):
@@ -241,7 +291,10 @@ def _saved_checkpoint(tmp_path):
                                   "synthesize_and_smooth", "rasterize_batch",
                                   "Text2VideoPipeline",
                                   "Text2VideoPipeline with an aligner",
-                                  "load_renderer", "cli"])
+                                  "load_renderer", "cli",
+                                  "create_trainer_state", "train_gan",
+                                  "cli train-gan",
+                                  "trainer_state_from_flax"])
 def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path, name):
     """Called without ``device`` (the CLI without ``--device``) where there
     is no card, each entry point raises instead of running on the CPU."""
@@ -267,13 +320,15 @@ def test_fused_weights_cached_and_follow_load_state_dict():
     assert k1.dtype == torch.bfloat16 and block.conv.hwio_kernel() is k1
     x = torch.from_numpy(
         np.random.RandomState(0).randn(1, 6, 8, 64).astype(np.float32))
-    y1 = block(x)
+    with torch.no_grad():
+        y1 = block(x)
     block.load_state_dict(_conv_block(1).state_dict())
     k2 = block.conv.hwio_kernel()
     assert k2 is not k1
     assert torch.equal(k2, block.conv.kernel.detach().bfloat16())
-    assert not torch.equal(block(x), y1)
-    assert torch.equal(block(x), _conv_block(1)(x))
+    with torch.no_grad():
+        assert not torch.equal(block(x), y1)
+        assert torch.equal(block(x), _conv_block(1)(x))
 
 
 def test_plain_conv_weights_cached_and_follow_load_state_dict():
@@ -283,15 +338,19 @@ def test_plain_conv_weights_cached_and_follow_load_state_dict():
     conv.reset_parameters(torch.Generator().manual_seed(0))
     x = torch.from_numpy(
         np.random.RandomState(1).randn(1, 20, 24, 8).astype(np.float32))
-    y1 = conv(x)
-    w1 = conv._packed.value[0]
-    conv(x)
+    # The cached copy serves inference; under grad the live kernel is cast.
+    with torch.no_grad():
+        y1 = conv(x)
+        w1 = conv._packed.value[0]
+        conv(x)
     assert conv._packed.value[0] is w1  # no new cast on the second call
     other = Conv(8, 16, kernel=7, stride=2, dtype=torch.bfloat16)
     other.reset_parameters(torch.Generator().manual_seed(1))
     with torch.no_grad():
         other.bias.fill_(0.5)
     conv.load_state_dict(other.state_dict())
-    y2 = conv(x)
-    assert conv._packed.value[0] is not w1
-    assert torch.equal(y2, other(x)) and not torch.equal(y2, y1)
+    with torch.no_grad():
+        y2 = conv(x)
+        assert conv._packed.value[0] is not w1
+        assert torch.equal(y2, other(x)) and not torch.equal(y2, y1)
+    assert torch.equal(conv(x).detach(), y2)  # the live cast, same values

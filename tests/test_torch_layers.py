@@ -93,8 +93,9 @@ def test_instance_norm_matches_flax():
 
 @pytest.mark.parametrize("fused", [False, True])
 def test_resblock_matches_flax(fused):
-    """The port's ResBlock (always the fused conv + statistics op; its plain
-    version here) against both JAX forms, ResBlock(fused=False/True)."""
+    """The port's ResBlock, through the fused conv + statistics op (its plain
+    version here) and through the plain conv + InstanceNorm, against the JAX
+    form of the same name, ResBlock(fused=True/False)."""
     import jax
     import jax.numpy as jnp
 
@@ -105,12 +106,17 @@ def test_resblock_matches_flax(fused):
     ref_mod = ResBlock(64, dtype=jnp.float32, fused=fused)
     tree = _randomize(ref_mod.init(jax.random.PRNGKey(0), jnp.asarray(x)), rng)
     ref = np.asarray(ref_mod.apply(tree, jnp.asarray(x)))
-    mod = tl.ResBlock(64, dtype=torch.float32)
+    mod = tl.ResBlock(64, dtype=torch.float32, fused=fused)
     mapping = {}
     for j in (0, 1):
         mapping.update(_conv_block_map(f"ConvBlock_{j}", f"block{j}."))
     _params_to_module(mod, tree, mapping)
-    out = mod(torch.from_numpy(x)).detach().numpy()
+    with torch.no_grad():  # the fused op refuses a graph that needs grad
+        out = mod(torch.from_numpy(x)).numpy()
+        other = tl.ResBlock(64, dtype=torch.float32, fused=not fused)
+        other.load_state_dict(mod.state_dict(), strict=True)
+        np.testing.assert_allclose(other(torch.from_numpy(x)).numpy(), out,
+                                   atol=1e-6, rtol=0)
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
 
 
@@ -142,3 +148,48 @@ def test_conv_init_is_seeded_lecun_normal():
     assert abs(k0.std().item() - std) < 0.05 * std
     assert k0.abs().max().item() <= 2 * std / 0.87962566103423978 + 1e-6
     assert not conv.bias.detach().any()
+
+
+@pytest.mark.parametrize("kernel,stride,padding,hw", [
+    (3, 1, 1, (9, 12)), (4, 2, 2, (9, 12)), (4, 1, 2, (6, 7))])
+def test_zero_padded_conv_matches_flax(kernel, stride, padding, hw):
+    """``Conv(padding=p)`` is flax's ``nn.Conv`` with explicit zero padding
+    (``SAME`` for the 3x3; the discriminators' 4x4 with pad 2)."""
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(6)
+    x = rng.randn(2, *hw, 5).astype(np.float32)
+    ref_mod = nn.Conv(7, (kernel, kernel), strides=(stride, stride),
+                      padding=((padding, padding), (padding, padding)))
+    tree = _randomize(ref_mod.init(jax.random.PRNGKey(0), jnp.asarray(x)), rng)
+    ref = np.asarray(ref_mod.apply(tree, jnp.asarray(x)))
+    mod = tl.Conv(5, 7, kernel=kernel, stride=stride, dtype=torch.float32,
+                  padding=padding)
+    _params_to_module(mod, tree, {"kernel": "kernel", "bias": "bias"})
+    out = mod(torch.from_numpy(x)).detach().numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+
+
+def test_conv_under_grad_casts_the_live_parameter():
+    """bf16 compute, f32 masters: under grad the gradient reaches the
+    parameter itself; without grad the cached detached copy serves, and
+    both give the same values."""
+    conv = tl.Conv(8, 16, kernel=3, dtype=torch.bfloat16)
+    conv.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(
+        np.random.RandomState(7).randn(1, 6, 8, 8).astype(np.float32))
+    assert conv.trains()
+    y = conv(x)
+    assert y.dtype == torch.bfloat16 and y.requires_grad
+    y.float().square().mean().backward()
+    for p in (conv.kernel, conv.bias):
+        assert p.grad is not None and p.grad.dtype == torch.float32
+        assert p.grad.abs().sum() > 0
+    with torch.no_grad():
+        assert not conv.trains()
+        assert torch.equal(conv(x), y.detach())
+    conv.requires_grad_(False)
+    assert not conv.trains() and not conv(x).requires_grad

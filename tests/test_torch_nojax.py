@@ -1,8 +1,10 @@
 """The port imports and runs without JAX and without the JAX package: every
 submodule imports, the plain slice (pose stage -> rasterizer -> renderer ->
-mux) runs at a tiny size, and the CLI's ``tts`` turns text into an mp4 on
-the golden data directory with a tiny checkpoint, in a child process where
-importing jax, flax, optax or text2video_tpu fails."""
+mux) runs at a tiny size, the CLI's ``tts`` turns text into an mp4 on the
+golden data directory with a tiny checkpoint (scan and Jacobi decoding),
+``train-gan`` takes a step on files written from the golden frames and
+``jacobi_quality`` reads its directory, in a child process where importing
+jax, flax, optax, orbax or text2video_tpu fails."""
 
 import os
 import subprocess
@@ -14,7 +16,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent(
     """
     import sys
-    for name in ("jax", "jaxlib", "flax", "optax", "text2video_tpu"):
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax",
+                 "text2video_tpu"):
         sys.modules[name] = None  # any import of them raises ImportError
 
     import importlib, pkgutil, tempfile
@@ -27,6 +30,10 @@ SCRIPT = textwrap.dedent(
         text2video_tpu_torch.__path__, "text2video_tpu_torch.")]
     for name in mods:
         importlib.import_module(name)
+    for sub in ("train.trainer", "train.data", "train.loop",
+                "tools.jacobi_quality", "models.discriminator",
+                "models.losses", "models.vgg"):
+        assert "text2video_tpu_torch." + sub in mods, sub
 
     from text2video_tpu_torch import pipeline
     from text2video_tpu_torch.config import PipelineConfig, RenderConfig
@@ -61,8 +68,31 @@ SCRIPT = textwrap.dedent(
                          tmp + "/out", "--device", "cpu"]) == 0
         import os
         assert os.path.getsize(tmp + "/out/fadg0/Dotheymake.mp4") > 0
+        assert cli.main(["tts", "Do they make it", "fadg0", "--data-dir",
+                         data, "--gan-checkpoint", tmp + "/ckpt", "--out",
+                         tmp + "/jac", "--device", "cpu", "--decode",
+                         "jacobi", "--sweeps", "2"]) == 0
+        assert os.path.getsize(tmp + "/jac/fadg0/Dotheymake.mp4") > 0
+
+        from text2video_tpu_torch.golden import write_training_assets
+        from text2video_tpu_torch.tools import jacobi_quality
+
+        images, keypoints = write_training_assets(tmp + "/train", 12,
+                                                  (128, 96))
+        size = ["--width", "128", "--height", "96", "--source-width", "512",
+                "--source-height", "384", "--device", "cpu"]
+        assert cli.main(["train-gan", "--images", images, "--keypoints",
+                         keypoints, "--ckpt", tmp + "/gan", "--clip-len", "4",
+                         "--batch-size", "1", "--base-ch", "8", "--steps",
+                         "1", *size]) == 0
+        assert os.path.isfile(tmp + "/gan/step_00000001/state.pt")
+        assert jacobi_quality.main(["--ckpt", tmp + "/gan", "--images",
+                                    images, "--keypoints", keypoints,
+                                    "--clip-len", "4", "--sweeps", "1",
+                                    *size]) == 0
     loaded = [k for k, v in sys.modules.items() if v is not None
-              and k.split(".")[0] in ("jax", "flax", "optax", "text2video_tpu")]
+              and k.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                      "text2video_tpu")]
     assert not loaded, loaded
     print("NOJAX_OK", len(mods))
     """

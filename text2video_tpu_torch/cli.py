@@ -5,13 +5,15 @@ Mirrors (reference):
   * ``text2video_tts.sh "<text>" <person> <f|m>``      -> ``tts``
   * ``text2video_audio.sh "<text>" <person>``          -> ``audio``
   * ``text2video_tts_chinese.sh "<text>" <person> f``  -> ``tts-chinese``
-plus ``audio-batch`` (many utterances as one generator batch) and the
-frontend tools ``train-aligner``, ``train-aligner-zh``, ``build-dict`` and
-``build-dict-zh``. The commands take the JAX CLI's arguments, plus
+plus ``audio-batch`` (many utterances as one generator batch), ``train-gan``
+and the frontend tools ``train-aligner``, ``train-aligner-zh``,
+``build-dict`` and ``build-dict-zh``. The commands take the JAX CLI's
+arguments (``train-gan`` without ``--n-model``: one device trains), plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions),
 and ``audio-batch`` also takes ``--pose-device``.
-``--gan-checkpoint`` takes the port's checkpoint format (``checkpoints.py``).
-GAN training and the benchmark are not offered here.
+``--gan-checkpoint`` takes the port's checkpoint formats
+(``checkpoints.py``): a renderer checkpoint or ``train-gan``'s directory.
+The benchmark is not offered here.
 
 Usage: ``python -m text2video_tpu_torch.cli <command> ...``. The video
 commands print one JSON object: the run's name, frame count, files and
@@ -58,13 +60,14 @@ def _add_common(p: argparse.ArgumentParser) -> None:
         choices=["scan", "jacobi"],
         default="scan",
         help="GAN decoding: 'scan' = exact sequential autoregression; "
-        "'jacobi' is not ported and raises",
+        "'jacobi' = batched fixed-point sweeps over the whole timeline "
+        "(approximate; --sweeps)",
     )
     p.add_argument(
         "--sweeps",
         type=int,
         default=3,
-        help="Jacobi sweep count (taken for the JAX CLI's arguments)",
+        help="Jacobi sweep count: more sweeps come closer to the scan",
     )
     p.add_argument(
         "--emit-intermediates",
@@ -328,6 +331,67 @@ def cmd_train_aligner_zh(args) -> int:
     return 0
 
 
+def cmd_train_gan(args) -> int:
+    import torch
+
+    from text2video_tpu_torch.train.data import PoseClipDataset
+    from text2video_tpu_torch.train.loop import train_gan
+    from text2video_tpu_torch.train.trainer import TrainConfig
+
+    # VGG policy: real weights turn the perceptual term on; otherwise it is
+    # off unless --random-vgg opts into the random-filter prior.
+    vgg_params = None
+    use_vgg = bool(args.vgg_weights) or args.random_vgg
+    if args.vgg_weights:
+        from text2video_tpu_torch.models.vgg import load_params
+
+        vgg_params = load_params(args.vgg_weights)
+    cfg = TrainConfig(
+        height=args.height,
+        width=args.width,
+        base_ch=args.base_ch,
+        use_vgg=use_vgg,
+        lambda_l1=args.l1,
+        lambda_l1_mouth=args.l1_mouth,
+        aug_jitter_px=args.aug_jitter,
+        aug_drop_prob=args.aug_drop,
+        aug_face_drop_prob=args.aug_face_drop,
+        aug_scale_crop=args.aug_scale_crop,
+        flow_supervision=args.flow,
+        d_lr_scale=args.d_lr_scale,
+        lambda_adv=args.lambda_adv,
+        lr=args.lr,
+        grad_accum=args.grad_accum,
+        dtype=torch.bfloat16,
+    )
+    dataset = PoseClipDataset(
+        images_dir=args.images,
+        keypoints_dir=args.keypoints,
+        canvas=(args.width, args.height),
+        source_canvas=(args.source_width or args.width,
+                       args.source_height or args.height),
+        clip_len=args.clip_len,
+        max_frames=args.max_frames,
+        split=args.split,
+        holdout_fraction=args.holdout_fraction,
+        device=args.device,
+    )
+    state = train_gan(
+        dataset,
+        cfg,
+        steps=args.steps,
+        batch_size=args.batch_size,
+        ckpt_dir=args.ckpt,
+        device_data=args.device_data,
+        sample_every=args.sample_every,
+        stall_timeout=args.stall_timeout,
+        vgg_params=vgg_params,
+        device=args.device,
+    )
+    print(json.dumps({"steps": int(state.step), "ckpt": args.ckpt}))
+    return 0
+
+
 def cmd_build_dict(args) -> int:
     from text2video_tpu_torch.dictbuild import (
         build_phoneme_dict,
@@ -503,6 +567,78 @@ def main(argv=None) -> int:
                    help="prompt list to check coverage against "
                    "(e.g. prompts/all_pinyin.txt)")
     p.set_defaults(fn=cmd_build_dict_zh)
+
+    p = sub.add_parser("train-gan", help="train the pose2frame GAN")
+    p.add_argument("--images", required=True, help="real frame dir")
+    p.add_argument("--keypoints", required=True, help="OpenPose JSON dir")
+    p.add_argument("--ckpt", required=True, help="checkpoint dir")
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--height", type=int, default=384)
+    p.add_argument("--source-width", type=int, default=None)
+    p.add_argument("--source-height", type=int, default=None)
+    p.add_argument("--clip-len", type=int, default=12)
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--batch-size", type=int, default=2)
+    p.add_argument("--base-ch", type=int, default=64)
+    p.add_argument("--vgg-weights", default=None,
+                   help="VGG19 .npz (models/vgg.load_params); supplying "
+                   "real weights turns the perceptual term on")
+    p.add_argument("--random-vgg", action="store_true",
+                   help="run the VGG term with fixed-seed random filters. "
+                   "Off by default")
+    p.add_argument("--no-vgg", action="store_true",
+                   help=argparse.SUPPRESS)  # legacy: VGG is off by default
+    p.add_argument("--l1", type=float, default=10.0,
+                   help="L1(fake, real) weight. 0 = vid2vid-faithful (use "
+                   "with --vgg-weights)")
+    p.add_argument("--l1-mouth", type=float, default=0.0,
+                   help="extra L1 on the 96px mouth crop: anchors lip "
+                   "fidelity through the adversarial phase")
+    p.add_argument("--split", choices=["train", "all"], default="train",
+                   help="'train' (default) reserves a deterministic "
+                   "held-out tail for honest evaluation "
+                   "(tools/jacobi_quality.py --split holdout); 'all' trains "
+                   "on every frame")
+    p.add_argument("--holdout-fraction", type=float, default=0.1)
+    p.add_argument("--sample-every", type=int, default=0,
+                   help="write a [real|fake|label] snapshot strip every N steps")
+    p.add_argument("--device-data", action="store_true",
+                   help="keep the whole dataset on the device; a step then "
+                   "moves only a [B,T] index array")
+    p.add_argument("--aug-jitter", type=float, default=0.0,
+                   help="keypoint jitter sigma in px (augmentation; not "
+                   "ported: any --aug-* raises)")
+    p.add_argument("--aug-drop", type=float, default=0.0,
+                   help="per-keypoint drop probability (augmentation)")
+    p.add_argument("--aug-face-drop", type=float, default=0.0,
+                   help="per-frame whole-face drop probability")
+    p.add_argument("--aug-scale-crop", action="store_true",
+                   help="random scaleHeight + aligned crop of reals AND "
+                   "keypoints each step")
+    p.add_argument("--flow", choices=["photometric", "reference"],
+                   default="photometric",
+                   help="flow loss: self-supervised warp or Farneback "
+                   "reference fields (host data path)")
+    p.add_argument("--d-lr-scale", type=float, default=1.0,
+                   help="discriminator lr multiplier (slow D for "
+                   "small-data stability)")
+    p.add_argument("--lambda-adv", type=float, default=1.0,
+                   help="adversarial weight; 0 = pure reconstruction "
+                   "pretrain (no discriminators applied or updated)")
+    p.add_argument("--lr", type=float, default=2e-4,
+                   help="Adam learning rate (recon pretrain tolerates "
+                   "higher, e.g. 5e-4)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="micro-batches per step (averaged gradients == "
+                   "full batch; cuts peak activation memory)")
+    p.add_argument("--stall-timeout", type=float, default=0.0,
+                   help="exit(3) when no step completes for this many "
+                        "seconds; auto-resume on rerun")
+    p.add_argument("--max-frames", type=int, default=None,
+                   help="cap total paired frames (device-data datasets "
+                   "must fit the device's memory)")
+    _add_device(p)
+    p.set_defaults(fn=cmd_train_gan)
 
     args = parser.parse_args(argv)
     return args.fn(args)

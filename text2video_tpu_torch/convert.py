@@ -1,7 +1,8 @@
-"""Flax parameter tree -> state_dict of the port's CompositeGenerator.
+"""Flax parameter trees -> state_dicts of the port's modules, and a whole
+JAX ``TrainerState`` -> the port's.
 
-The flax tree (``CompositeGenerator.init`` or a checkpoint, leaves as numpy)
-is laid out as::
+The generator's flax tree (``CompositeGenerator.init`` or a checkpoint,
+leaves as numpy) is laid out as::
 
     GlobalTrunk_0/ConvBlock_0                  stem (7x7)
     GlobalTrunk_0/ConvBlock_{1..n_down}        stride-2 downsamples
@@ -12,7 +13,14 @@ is laid out as::
 with every ConvBlock holding ``Conv_0/{kernel,bias}`` and
 ``InstanceNorm_0/{scale,bias}``. The phase form and the fused form of the
 JAX generator share this tree, so one mapping serves every JAX variant.
+With local enhancers the top level also holds, for the j-th stage in the
+order the stages run (the coarsest first), ``ConvBlock_{2j}`` (7x7 stem),
+``ConvBlock_{2j+1}`` (stride 2), ``Conv_j`` (the 3x3 conv on the coarser
+feature), ``ResBlock_{j*n .. j*n+n-1}`` and ``Upsample_j``.
 Kernels stay HWIO float32: the port keeps the flax layout.
+
+Nothing here imports JAX: the trees come in as mappings of numpy-convertible
+leaves, and the optimizer state is read by attribute (``g_opt[0].mu``).
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ def _leaves(prefix: str, node: Mapping[str, Any], keys,
             out: Dict[str, torch.Tensor]) -> None:
     _expect(node, keys, prefix)
     for leaf in keys:
-        out[f"{prefix}.{leaf}"] = torch.as_tensor(
-            np.asarray(node[leaf], dtype=np.float32))
+        # A copy: the leaf may be a read-only view of a JAX buffer, and an
+        # optimizer updates its moments in place.
+        out[f"{prefix}.{leaf}"] = torch.from_numpy(
+            np.array(node[leaf], dtype=np.float32))
 
 
 def _conv_block(prefix: str, node: Mapping[str, Any],
@@ -45,14 +55,53 @@ def _conv_block(prefix: str, node: Mapping[str, Any],
     _leaves(f"{prefix}.norm", node["InstanceNorm_0"], ("scale", "bias"), out)
 
 
+def _res_block(prefix: str, node: Mapping[str, Any],
+               out: Dict[str, torch.Tensor]) -> None:
+    _expect(node, ("ConvBlock_0", "ConvBlock_1"), prefix)
+    for j in (0, 1):
+        _conv_block(f"{prefix}.block{j}", node[f"ConvBlock_{j}"], out)
+
+
+def _local_enhancers(p: Mapping[str, Any],
+                     out: Dict[str, torch.Tensor]) -> None:
+    """The top-level entries of the local enhancer stages (none without)."""
+    names = [n for n in p if n not in ("GlobalTrunk_0", "heads")]
+    n_local = sum(1 for n in names if re.fullmatch(r"Upsample_\d+", n))
+    n_res = sum(1 for n in names if re.fullmatch(r"ResBlock_\d+", n))
+    if names and (n_local == 0 or n_res % n_local):
+        raise KeyError(f"unmapped flax entries {sorted(names)}")
+    n_blocks = n_res // n_local if n_local else 0
+    for name in names:
+        m = re.fullmatch(r"(ConvBlock|Conv|ResBlock|Upsample)_(\d+)", name)
+        if m is None:
+            raise KeyError(f"unmapped flax entry {name}")
+        kind, i = m.group(1), int(m.group(2))
+        node = p[name]
+        if kind == "ConvBlock" and i < 2 * n_local:
+            _conv_block(f"local.{i // 2}." + ("down" if i % 2 else "stem"),
+                        node, out)
+        elif kind == "Conv" and i < n_local:
+            _leaves(f"local.{i}.merge", node, ("kernel", "bias"), out)
+        elif kind == "ResBlock":
+            _res_block(f"local.{i // n_blocks}.res.{i % n_blocks}", node, out)
+        elif kind == "Upsample" and i < n_local:
+            _expect(node, ("ConvBlock_0",), name)
+            _conv_block(f"local.{i}.up.block", node["ConvBlock_0"], out)
+        else:
+            raise KeyError(f"unmapped flax entry {name}")
+
+
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax CompositeGenerator params (with or without the top-level
     ``"params"`` key) -> state_dict for
     :class:`text2video_tpu_torch.models.generator.CompositeGenerator`.
     Raises KeyError on any entry it cannot place."""
     p = tree.get("params", tree)
-    _expect(p, ("GlobalTrunk_0", "heads"), "params")
+    if "GlobalTrunk_0" not in p or "heads" not in p:
+        raise KeyError(f"params: flax entries {sorted(p)}, expected "
+                       "GlobalTrunk_0 and heads")
     out: Dict[str, torch.Tensor] = {}
+    _local_enhancers(p, out)
     for name, node in p["GlobalTrunk_0"].items():
         m = re.fullmatch(r"(ConvBlock|ResBlock|Upsample)_(\d+)", name)
         if m is None:
@@ -62,12 +111,86 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             prefix = "trunk.stem" if i == 0 else f"trunk.down.{i - 1}"
             _conv_block(prefix, node, out)
         elif kind == "ResBlock":
-            _expect(node, ("ConvBlock_0", "ConvBlock_1"), name)
-            for j in (0, 1):
-                _conv_block(f"trunk.res.{i}.block{j}", node[f"ConvBlock_{j}"],
-                            out)
+            _res_block(f"trunk.res.{i}", node, out)
         else:
             _expect(node, ("ConvBlock_0",), name)
             _conv_block(f"trunk.up.{i}.block", node["ConvBlock_0"], out)
     _leaves("heads", p["heads"], ("kernel", "bias"), out)
+    return out
+
+
+def discriminator_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax MultiscaleDiscriminator params -> state_dict for
+    :class:`text2video_tpu_torch.models.discriminator.MultiscaleDiscriminator`.
+    A tower ``scale{i}`` holds ``Conv_0 .. Conv_{n+1}`` (the last one the
+    logits) and ``InstanceNorm_0 .. InstanceNorm_{n-1}``."""
+    p = tree.get("params", tree)
+    out: Dict[str, torch.Tensor] = {}
+    for scale, tower in p.items():
+        if re.fullmatch(r"scale\d+", scale) is None:
+            raise KeyError(f"unmapped flax entry {scale}")
+        n_convs = sum(1 for n in tower if n.startswith("Conv_"))
+        _expect(tower, [f"Conv_{i}" for i in range(n_convs)]
+                + [f"InstanceNorm_{i}" for i in range(n_convs - 2)], scale)
+        for i in range(n_convs):
+            name = (f"{scale}.logits" if i == n_convs - 1
+                    else f"{scale}.convs.{i}")
+            _leaves(name, tower[f"Conv_{i}"], ("kernel", "bias"), out)
+        for i in range(n_convs - 2):
+            _leaves(f"{scale}.norms.{i}", tower[f"InstanceNorm_{i}"],
+                    ("scale", "bias"), out)
+    return out
+
+
+def vgg_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax VGG19Features params -> state_dict for
+    :class:`text2video_tpu_torch.models.vgg.VGG19Features`."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, node in tree.get("params", tree).items():
+        if re.fullmatch(r"conv\d_\d", name) is None:
+            raise KeyError(f"unmapped flax entry {name}")
+        _leaves(name, node, ("kernel", "bias"), out)
+    return out
+
+
+def _load_adam(opt: torch.optim.Adam, named_params, scale_by_adam,
+               convert) -> None:
+    """Fill a torch Adam's state from optax's ``ScaleByAdamState``
+    (``count``, ``mu``, ``nu``; the moments are trees shaped like the
+    parameters, so ``convert`` maps them the way it maps parameters)."""
+    mu, nu = convert(scale_by_adam.mu), convert(scale_by_adam.nu)
+    count = float(np.asarray(scale_by_adam.count))
+    for name, p in named_params:
+        opt.state[p] = {
+            "step": torch.tensor(count),
+            "exp_avg": mu[name].to(p.device),
+            "exp_avg_sq": nu[name].to(p.device),
+        }
+
+
+def trainer_state_from_flax(state: Any, cfg, device=None):
+    """A JAX ``TrainerState`` (``step``, ``g_params``, ``d_params``,
+    ``vgg_params``, ``g_opt``, ``d_opt`` of ``optax.adam``) -> the port's
+    :class:`text2video_tpu_torch.train.trainer.TrainerState` for ``cfg`` (the
+    port's ``TrainConfig`` with the same fields), on ``device``: parameters,
+    Adam moments and counts, and the step, so both packages take the same
+    next step."""
+    from text2video_tpu_torch.train.trainer import create_trainer_state
+
+    def discs_from_flax(d_tree):
+        return {f"{key}.{k}": v for key, tree in d_tree.items()
+                for k, v in discriminator_from_flax(tree).items()}
+
+    vgg_params = (vgg_from_flax(state.vgg_params)
+                  if cfg.use_vgg and state.vgg_params is not None else None)
+    out = create_trainer_state(cfg, vgg_params=vgg_params, device=device)
+    out.step = int(np.asarray(state.step))
+    out.generator.load_state_dict(params_from_flax(state.g_params),
+                                  strict=True)
+    out.discriminators.load_state_dict(discs_from_flax(state.d_params),
+                                       strict=True)
+    _load_adam(out.g_opt, out.generator.named_parameters(), state.g_opt[0],
+               params_from_flax)
+    _load_adam(out.d_opt, out.discriminators.named_parameters(),
+               state.d_opt[0], discs_from_flax)
     return out

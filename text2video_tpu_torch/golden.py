@@ -13,6 +13,9 @@ from the committed golden frames: the 87 fadg0 frames under
   reference's, so ``get_profile(name, data_dir=root)`` and the CLI's
   ``--data-dir`` find dictionaries and keypoint folders for fadg0 and henan
   that cover every symbol the frontends can emit.
+* :func:`write_training_assets`: paired real-frame images and keypoint
+  JSONs for ``train/data.py::PoseClipDataset``, the images drawn from the
+  keypoints.
 """
 
 from __future__ import annotations
@@ -163,3 +166,47 @@ def write_golden_assets(root: str, seed: int = 0) -> str:
     os.makedirs(dict_dir, exist_ok=True)
     open(os.path.join(dict_dir, "dict"), "w").close()
     return root
+
+
+def write_training_assets(root: str, n_frames: int = 40,
+                          canvas: Tuple[int, int] = (512, 384)
+                          ) -> Tuple[str, str]:
+    """Write a GAN training set under ``root`` and return ``(images_dir,
+    keypoints_dir)``: two runs of ``n_frames`` golden fadg0 pose frames each
+    (``run0`` the first frames in order, ``run1`` the last ones reversed, so
+    a holdout split has a run to hold out), as ``<run>_<frame>.jpg`` and
+    ``<run>_<frame>_keypoints.json``. The JSONs are the golden files
+    (annotated on fadg0's 512x384 canvas: pass that as the dataset's
+    ``source_canvas``); each image is a deterministic drawing of its
+    keypoints at ``canvas`` (w, h): a shaded background, the face outline
+    filled, eyes, and the mouth, which moves with the pose."""
+    import cv2
+
+    paths = _golden_frames(GOLDEN_POSE_DIR)
+    if not 2 <= n_frames <= len(paths):
+        raise ValueError(f"n_frames {n_frames} outside 2..{len(paths)}")
+    images_dir = os.path.join(root, "images")
+    keypoints_dir = os.path.join(root, "keypoints")
+    os.makedirs(images_dir, exist_ok=True)
+    os.makedirs(keypoints_dir, exist_ok=True)
+    w, h = canvas
+    src_w, src_h = get_profile("fadg0").canvas
+    yy, xx = np.mgrid[0:h, 0:w]
+    background = np.stack([96 + 64 * xx / w, 112 + 48 * yy / h,
+                           128 + 0 * xx], axis=-1).astype(np.uint8)
+    runs = {"run0": paths[:n_frames], "run1": paths[::-1][:n_frames]}
+    for run, members in runs.items():
+        for i, src in enumerate(members):
+            shutil.copyfile(src, os.path.join(
+                keypoints_dir, f"{run}_{i:03d}_keypoints.json"))
+            face = frame_from_raw(load_keypoint_json(str(src))).face
+            pts = face.reshape(70, 3)[:, :2] * (w / src_w, h / src_h)
+            pts = np.round(pts).astype(np.int32)
+            img = background.copy()
+            cv2.fillConvexPoly(img, cv2.convexHull(pts[:27]), (120, 150, 210))
+            for eye in (pts[36:42], pts[42:48]):
+                cv2.fillConvexPoly(img, cv2.convexHull(eye), (250, 250, 250))
+            cv2.fillPoly(img, [pts[48:60]], (60, 50, 170))
+            cv2.fillPoly(img, [pts[60:68]], (20, 20, 40))
+            cv2.imwrite(os.path.join(images_dir, f"{run}_{i:03d}.jpg"), img)
+    return images_dir, keypoints_dir

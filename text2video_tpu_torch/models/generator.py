@@ -1,11 +1,17 @@
 """Composite pose2frame generator (counterpart of
-``text2video_tpu/models/generator.py`` with ``n_local_enhancers=0`` and the
-plain decoder tail).
+``text2video_tpu/models/generator.py`` with the plain decoder tail).
 
 From the current and previous label maps and the previously generated
 frames it predicts a hallucinated frame, a dense flow and an occlusion mask,
 and outputs ``mask * hallucinated + (1 - mask) * warp(prev, flow)``; the
 first frame of an utterance (``has_prev == 0``) forces the mask open.
+
+Coarse to fine: the global trunk runs at ``1 / 2**n_local_enhancers`` of the
+resolution and each local enhancer refines its feature at the next finer
+scale; the heads sit on the finest stage. ``fused_resblocks`` sends the
+trunk's resblock convs through the fused conv + statistics op (kernel B1 on
+a card), which serves but cannot train; ``False`` runs the plain convs on
+the same parameters.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from text2video_tpu_torch.models.layers import (
@@ -20,6 +27,7 @@ from text2video_tpu_torch.models.layers import (
     ConvBlock,
     ResBlock,
     Upsample,
+    downscale2x,
     reflect_pad,
 )
 from text2video_tpu_torch.ops.warp import flow_warp
@@ -32,7 +40,8 @@ class GlobalTrunk(nn.Module):
 
     def __init__(self, in_channels: int, base_ch: int = 64,
                  n_downsample: int = 3, n_blocks: int = 9,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 fused_resblocks: bool = True):
         super().__init__()
         ch = base_ch
         self.stem = ConvBlock(in_channels, ch, kernel=7, dtype=dtype)
@@ -41,7 +50,8 @@ class GlobalTrunk(nn.Module):
             down.append(ConvBlock(ch, 2 * ch, stride=2, dtype=dtype))
             ch *= 2
         self.down = nn.ModuleList(down)
-        self.res = nn.ModuleList(ResBlock(ch, dtype) for _ in range(n_blocks))
+        self.res = nn.ModuleList(ResBlock(ch, dtype, fused=fused_resblocks)
+                                 for _ in range(n_blocks))
         up = []
         for _ in range(n_downsample):
             up.append(Upsample(ch, ch // 2, dtype))
@@ -56,6 +66,36 @@ class GlobalTrunk(nn.Module):
         return x
 
 
+class LocalEnhancer(nn.Module):
+    """One pix2pixHD-style refinement stage at a finer scale: a 7x7 stem and
+    a stride-2 block over this scale's inputs, the coarser stage's feature
+    (nearest-resized, through a zero-padded 3x3 conv) added to it, plain
+    resblocks, and a 2x upsample back to this scale."""
+
+    def __init__(self, in_channels: int, base_ch: int, n_blocks: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        ch = base_ch // 2
+        self.stem = ConvBlock(in_channels, ch, kernel=7, dtype=dtype)
+        self.down = ConvBlock(ch, 2 * ch, stride=2, dtype=dtype)
+        self.merge = Conv(base_ch, 2 * ch, dtype=dtype, padding=1)
+        self.res = nn.ModuleList(ResBlock(2 * ch, dtype, fused=False)
+                                 for _ in range(n_blocks))
+        self.up = Upsample(2 * ch, ch, dtype)
+
+    def forward(self, labels: torch.Tensor, prev_imgs: torch.Tensor,
+                feat: torch.Tensor) -> torch.Tensor:
+        y = self.down(self.stem(torch.cat([labels, prev_imgs], dim=-1)))
+        if feat.shape[1:3] != y.shape[1:3]:
+            # jax.image.resize "nearest" samples at pixel centres.
+            feat = F.interpolate(feat.permute(0, 3, 1, 2), size=y.shape[1:3],
+                                 mode="nearest-exact").permute(0, 2, 3, 1)
+        y = y + self.merge(feat)
+        for block in self.res:
+            y = block(y)
+        return self.up(y)
+
+
 class CompositeGenerator(nn.Module):
     """labels [B, H, W, 3 * n_label_ctx] (current first), prev_imgs
     [B, H, W, 3 * n_prev] (most recent first), has_prev [B] in {0, 1} ->
@@ -65,14 +105,22 @@ class CompositeGenerator(nn.Module):
     def __init__(self, in_channels: int, base_ch: int = 64,
                  n_downsample: int = 3, n_blocks: int = 9,
                  flow_scale: float = 10.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 n_local_enhancers: int = 0, n_local_blocks: int = 3,
+                 fused_resblocks: bool = True):
         super().__init__()
         self.dtype = dtype
         self.flow_scale = flow_scale
+        self.base_ch = base_ch
         self.trunk = GlobalTrunk(in_channels, base_ch, n_downsample,
-                                 n_blocks, dtype)
+                                 n_blocks, dtype, fused_resblocks)
+        # In the order the stages run: the coarsest first.
+        self.local = nn.ModuleList(
+            LocalEnhancer(in_channels, base_ch, n_local_blocks, dtype)
+            for _ in range(n_local_enhancers))
         # One 7x7 conv for all six outputs: image 3 + flow 2 + mask 1.
-        self.heads = Conv(base_ch, 6, kernel=7, dtype=dtype)
+        self.heads = Conv(base_ch // 2 if n_local_enhancers else base_ch, 6,
+                          kernel=7, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded random init: lecun-normal conv kernels, zero biases,
@@ -90,7 +138,12 @@ class CompositeGenerator(nn.Module):
         dt = self.dtype
         labels = labels.to(dt)
         prev_imgs = prev_imgs.to(dt)
-        feat = self.trunk(labels, prev_imgs)
+        pyramid = [(labels, prev_imgs)]
+        for _ in self.local:
+            pyramid.append(tuple(downscale2x(x) for x in pyramid[-1]))
+        feat = self.trunk(*pyramid[-1])
+        for stage, (lab, img) in zip(self.local, reversed(pyramid[:-1])):
+            feat = stage(lab, img, feat)
         heads = self.heads(reflect_pad(feat, 3)).float()
         raw = torch.tanh(heads[..., 0:3])
         flow = heads[..., 3:5] * self.flow_scale

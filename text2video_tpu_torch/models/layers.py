@@ -7,8 +7,10 @@ package. Parameters keep the flax layout and dtype — conv kernels HWIO
 instance-norm ``scale``/``bias`` — so a converted flax tree
 (``convert.py``) loads without transposes. Each conv keeps a packed copy of
 its kernel and bias in the compute dtype, made once and remade only when a
-parameter changes, not cast on every call. The copies are detached: the
-port serves, it does not train.
+parameter changes, not cast on every call. The copies are detached and serve
+inference; when grad mode is on and a parameter requires grad, a conv casts
+the live f32 parameter inside the graph instead (what flax does with
+``param_dtype=f32, dtype=bf16``), so gradients reach the master parameters.
 """
 
 from __future__ import annotations
@@ -61,12 +63,15 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """VALID NHWC conv; the bias is added in the compute dtype."""
+    """NHWC conv, VALID unless ``padding`` (zeros on each side of H and W)
+    is given; the bias is added in the compute dtype."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
-                 stride: int = 1, dtype: torch.dtype = torch.bfloat16):
+                 stride: int = 1, dtype: torch.dtype = torch.bfloat16,
+                 padding: int = 0):
         super().__init__()
         self.stride = stride
+        self.padding = padding
         self.dtype = dtype
         self.kernel = nn.Parameter(
             torch.zeros(kernel, kernel, in_features, features))
@@ -90,10 +95,20 @@ class Conv(nn.Module):
         """The kernel [k, k, cin, cout] in the compute dtype (cached)."""
         return self._hwio.get(self.kernel)
 
+    def trains(self) -> bool:
+        """True when a call must stay on the autograd graph of the
+        parameters."""
+        return torch.is_grad_enabled() and (
+            self.kernel.requires_grad or self.bias.requires_grad)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self._packed.get(self.kernel, self.bias)
+        if self.trains():
+            w = self.kernel.to(self.dtype).permute(3, 2, 0, 1)
+            b = self.bias.to(self.dtype)
+        else:
+            w, b = self._packed.get(self.kernel, self.bias)
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
-                     stride=self.stride)
+                     stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1) + b
 
 
@@ -165,14 +180,18 @@ class ConvBlock(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """Two reflect-padded 3x3 ConvBlocks with a residual skip. Both convs
-    always go through the fused conv + statistics op, at every batch size."""
+    """Two reflect-padded 3x3 ConvBlocks with a residual skip. ``fused``
+    (the serving default) sends both convs through the fused conv +
+    statistics op, at every batch size; ``fused=False`` runs the plain
+    reflect-pad conv + InstanceNorm on the same parameters, which is the
+    form that trains (the fused op has no backward)."""
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16,
+                 fused: bool = True):
         super().__init__()
-        self.block0 = ConvBlock(features, features, dtype=dtype, fused=True)
+        self.block0 = ConvBlock(features, features, dtype=dtype, fused=fused)
         self.block1 = ConvBlock(features, features, act=False, dtype=dtype,
-                                fused=True)
+                                fused=fused)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.block1(self.block0(x))
@@ -189,3 +208,21 @@ class Upsample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         return self.block(x)
+
+
+def downscale2x(x: torch.Tensor) -> torch.Tensor:
+    """3x3 average pool, stride 2, zero pad 1 on an NHWC tensor; the zero
+    pad counts in the average, as flax's ``nn.avg_pool`` counts it. Summed
+    in f32 from nine strided slices: ``F.avg_pool2d``'s CUDA backward
+    returned wrong input gradients for the channels-last view an NHWC
+    tensor gives it (torch 2.11.0+cu128; ``chip_smoke.py`` holds the card's
+    gradients through this pyramid against the CPU's)."""
+    _, h, w, _ = x.shape
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            tap = xp[:, dy: dy + 2 * ho - 1: 2, dx: dx + 2 * wo - 1: 2]
+            acc = tap if acc is None else acc + tap
+    return (acc / 9.0).to(x.dtype)

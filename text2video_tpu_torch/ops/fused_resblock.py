@@ -8,7 +8,9 @@ finishes exactly as the JAX wrapper does (``mean = s1/n``,
 ``var = max(s2/n - mean^2, 0)``).
 
 Dispatch: a CPU tensor takes :func:`conv3x3_stats_plain`; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. The op has no backward (the JAX kernel
+defines no VJP either): under grad mode with an input that requires grad it
+raises on both devices, so a training graph cannot pass through it unseen.
 """
 
 from __future__ import annotations
@@ -51,7 +53,14 @@ def conv3x3_stats(
     """x [B, H, W, C] compute dtype (bf16 or f32), k [3, 3, C, C] HWIO in
     f32 or the compute dtype (taken as it is when it already has x's dtype;
     callers keep such a copy), b [C] f32 -> (y [B, H, W, C] compute dtype,
-    mean [B, C] f32, var [B, C] f32)."""
+    mean [B, C] f32, var [B, C] f32). Inference only: raises when autograd
+    would have to differentiate it."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or k.requires_grad or b.requires_grad):
+        raise RuntimeError(
+            "conv3x3_stats has no backward: build the generator with "
+            "fused_resblocks=False to train, or call it under "
+            "torch.no_grad() / torch.inference_mode()")
     if x.device.type == "cpu":
         return conv3x3_stats_plain(x, k, b)
     if x.device.type != "cuda":

@@ -40,3 +40,11 @@ def flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     top = v00.to(f32) + (v01 - v00).to(f32) * wx
     bot = v10.to(f32) + (v11 - v10).to(f32) * wx
     return (top + (bot - top) * wy).to(img.dtype)
+
+
+def flow_tv(flow: torch.Tensor) -> torch.Tensor:
+    """Total-variation smoothness penalty on a [B, H, W, 2] flow field: the
+    mean absolute forward difference along each spatial axis, summed."""
+    dy = (flow[:, 1:] - flow[:, :-1]).abs()
+    dx = (flow[:, :, 1:] - flow[:, :, :-1]).abs()
+    return dy.mean() + dx.mean()

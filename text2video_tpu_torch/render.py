@@ -1,5 +1,6 @@
 """Autoregressive pose2frame rendering (counterpart of
-``text2video_tpu/render.py``, scan decoding only).
+``text2video_tpu/render.py``): the exact sequential scan and Jacobi
+(fixed-point) decoding.
 
 Label maps arrive as device tensors ([B, chunk, H, W, 3]); the generator
 runs once per frame in a Python loop — the eager counterpart of the JAX
@@ -9,9 +10,13 @@ compute dtype. Frames are quantized to uint8 (or converted to YUV420) on the
 device before they go to the host.
 
 ``render_many_device`` renders a batch of utterances in one scan (the
-generator step runs at batch B). Not ported here: Jacobi decoding, mesh
-sharding, and the ``"dct"`` wire, which exists for the TPU host link; this
-renderer streams YUV420 whatever ``RenderConfig.wire_format`` says.
+generator step runs at batch B). ``jacobi_device`` iterates the recurrence
+over the whole timeline instead: each sweep runs the generator on
+``time_bucket`` frames at once, every frame fed its neighbours of the
+previous sweep. Not ported here: mesh sharding (of the scan's batch and of
+the Jacobi timeline), and the ``"dct"`` wire, which exists for the TPU host
+link; this renderer streams YUV420 whatever ``RenderConfig.wire_format``
+says.
 """
 
 from __future__ import annotations
@@ -41,6 +46,18 @@ def resize_labels(labels: torch.Tensor, height: int, width: int) -> torch.Tensor
     x = F.interpolate(x, size=(height, width), mode="bilinear",
                       align_corners=False, antialias=True)
     return x.permute(0, 2, 3, 1).reshape(*lead, height, width, 3)
+
+
+def _shift_frames(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x[i - k] at row i of the leading axis, zeros before the start."""
+    return torch.cat([torch.zeros_like(x[:k]), x[: x.shape[0] - k]], dim=0)
+
+
+def _quantize_u8(frames: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] frames -> uint8, in f32 (a bf16 ulp at 255 is 1); the cast
+    truncates."""
+    return torch.clamp((frames.float() + 1.0) * 127.5, 0.0,
+                       255.0).to(torch.uint8)
 
 
 def _to_host_async(t: torch.Tensor):
@@ -164,10 +181,78 @@ class Renderer:
                       steps: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Carry]:
         frames, carry = self._scan_chunk(labels, carry, steps)
-        # Quantize in f32 (a bf16 ulp at 255 is 1); the cast truncates.
-        frames_u8 = torch.clamp((frames.float() + 1.0) * 127.5, 0.0,
-                                255.0).to(torch.uint8)
-        return frames_u8, carry
+        return _quantize_u8(frames), carry
+
+    # ---- Jacobi (fixed-point) decoding -----------------------------------
+
+    @torch.inference_mode()
+    def jacobi_device(self, labels: torch.Tensor, sweeps: int) -> torch.Tensor:
+        """[T, H, W, 3] normalized labels on the device -> [T, H', W', 3]
+        f32 frames in [-1, 1], by Jacobi iteration on the autoregressive
+        chain.
+
+        The scan is the fixed point of ``frames[t] = G(labels[t-ctx+1..t],
+        frames[t-prev..t-1])``. A sweep runs the generator over the whole
+        timeline, ``time_bucket`` frames a call, each frame fed the previous
+        sweep's neighbours (zeros before frame 0 and on the first sweep).
+        Frame 0 has no previous frame and is exact after one sweep; every
+        further sweep carries the exact prefix at least one frame on, so
+        ``sweeps >= T`` reproduces the scan in exact arithmetic. In floats
+        the reductions of a batched call are ordered differently from a
+        one-frame call's, and the warp recurrence amplifies that.
+
+        As in the scan, the label context is cast once to the generator
+        dtype, frames stay in that dtype between sweeps and are upcast once
+        at the end. The last bucket runs at its real length: no generator
+        call sees padding frames."""
+        cfg = self.config
+        t, h, w = labels.shape[:3]
+        h2, w2 = self.target_hw(h, w)
+        labels = labels.float()
+        if (h2, w2) != (h, w):
+            labels = resize_labels(labels, h2, w2)
+        dt = self.generator.dtype
+        labels = labels.to(dt)
+        labels_ctx = torch.cat(
+            [labels] + [_shift_frames(labels, k)
+                        for k in range(1, cfg.n_frames_ctx)], dim=-1)
+        has_prev = (torch.arange(t, device=labels.device) > 0).float()
+        bucket = max(min(self.time_bucket, t), 1)
+        frames = torch.zeros((t, h2, w2, 3), dtype=dt, device=labels.device)
+        for _ in range(max(int(sweeps), 1)):
+            prev_imgs = torch.cat(
+                [_shift_frames(frames, k)
+                 for k in range(1, cfg.use_prev_frames + 1)], dim=-1)
+            outs = []
+            for lo in range(0, t, bucket):
+                hi = lo + bucket
+                frame, _, _ = self.generator(labels_ctx[lo:hi],
+                                             prev_imgs[lo:hi], has_prev[lo:hi])
+                outs.append(frame.to(dt))
+            frames = torch.cat(outs, dim=0)
+        return frames.float()
+
+    def _jacobi_from_chunks(self, label_chunks, t: int) -> torch.Tensor:
+        """The whole timeline of on-device uint8 label chunks, Jacobi-decoded
+        with the configured sweep count: [min(t, max_frames), H', W', 3]
+        f32."""
+        chunks = list(label_chunks)
+        if not chunks:
+            raise ValueError("no label chunks")
+        want = min(t, self.config.max_frames)
+        labels = torch.cat(chunks, dim=0)[:want].float() / 127.5 - 1.0
+        return self.jacobi_device(labels, self.config.jacobi_sweeps)
+
+    def render_jacobi(self, labels_u8: np.ndarray,
+                      sweeps: int = 3) -> np.ndarray:
+        """[T, H, W, 3] uint8 host labels -> [T, H', W', 3] uint8 frames by
+        ``sweeps`` Jacobi sweeps (:meth:`jacobi_device`). Few sweeps are the
+        fast mode: the generator runs at batch ``time_bucket`` instead of
+        batch 1, for ``sweeps`` times the arithmetic."""
+        t = min(labels_u8.shape[0], self.config.max_frames)
+        labels = torch.as_tensor(labels_u8[:t], device=self.device)
+        frames = self.jacobi_device(labels.float() / 127.5 - 1.0, sweeps)
+        return _quantize_u8(frames).cpu().numpy()
 
     def generate_device(self, labels_u8: torch.Tensor) -> List[torch.Tensor]:
         """[B, T, H, W, 3] uint8 label maps (scaled to [-1, 1] a chunk at a
@@ -201,7 +286,12 @@ class Renderer:
     def render_from_device_chunks(self, label_chunks, t: int) -> np.ndarray:
         """On-device uint8 label chunks ([time_bucket, H, W, 3] each, the
         rasterizer's ``to_host=False`` output) -> [t, H', W', 3] uint8 host
-        frames. Labels never go through the host."""
+        frames. Labels never go through the host. With
+        ``config.decode_mode == "jacobi"`` the timeline is decoded whole by
+        ``config.jacobi_sweeps`` sweeps."""
+        if self.config.decode_mode == "jacobi":
+            frames = self._jacobi_from_chunks(label_chunks, t)
+            return _quantize_u8(frames).cpu().numpy()
         label_chunks = self._normalize_chunks(label_chunks)
         h, w = label_chunks[0].shape[1:3]
         carry = self.init_carry(1, *self.target_hw(h, w))
@@ -251,14 +341,36 @@ class Renderer:
         Chunk i's planes are copied to pinned host memory asynchronously
         while chunk i+1 is rendered, and handed out only after that, so the
         copy and the consumer overlap the next chunk's compute. ``timer``
-        (a StageTimer) records the wait in ``render_pull``."""
+        (a StageTimer) records the wait in ``render_pull``.
+
+        ``config.decode_mode == "jacobi"`` decodes the whole timeline first
+        and then hands out the same chunks the same way."""
         def span(name):
             return timer.stage(name) if timer else contextlib.nullcontext()
 
+        pending = None
+        for frames in self._frame_chunks(label_chunks, t):
+            planes = rgb_norm_to_yuv420(frames)
+            copies = [_to_host_async(p) for p in planes]
+            if pending is not None:
+                yield self._wait_host(pending, span)
+            pending = copies
+        if pending is not None:
+            yield self._wait_host(pending, span)
+
+    def _frame_chunks(self, label_chunks, t: int) -> Iterator[torch.Tensor]:
+        """The utterance's frames in [-1, 1], [n, H', W', 3] a label chunk,
+        the n summing to ``min(t, max_frames)``, by the configured decoding."""
+        label_chunks = list(label_chunks)
+        if self.config.decode_mode == "jacobi":
+            frames = self._jacobi_from_chunks(label_chunks, t)
+            bucket = label_chunks[0].shape[0]
+            for lo in range(0, frames.shape[0], bucket):
+                yield frames[lo: lo + bucket]
+            return
         chunks = self._normalize_chunks(label_chunks)
         rem = min(t, self.config.max_frames)
         carry = self.init_carry(1, *self.target_hw(*chunks[0].shape[1:3]))
-        pending = None
         for chunk in chunks:
             if rem <= 0:
                 break
@@ -266,13 +378,7 @@ class Renderer:
             rem -= n
             labels = chunk.float()[None] / 127.5 - 1.0
             frames, carry = self._scan_chunk(labels, carry, n)
-            planes = rgb_norm_to_yuv420(frames[0])
-            copies = [_to_host_async(p) for p in planes]
-            if pending is not None:
-                yield self._wait_host(pending, span)
-            pending = copies
-        if pending is not None:
-            yield self._wait_host(pending, span)
+            yield frames[0]
 
     @staticmethod
     def _wait_host(copies, span):

@@ -1,0 +1,224 @@
+"""GAN training loop: steps, metrics, checkpoints (counterpart of
+``text2video_tpu/train/loop.py`` on one device).
+
+The reference trains vid2vid with ``train.py --dataset_mode pose ...
+--batchSize 8``. Here: the train step of ``train/trainer.py``, host-side
+clip sampling (``train/data.py``), wall-clock and loss logging, periodic
+saves with auto-resume (``checkpoints.py``). Not ported: the mesh (one
+device trains), and the augmented device-data branch with
+``train/augment.py`` (any ``aug_*`` set raises).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from text2video_tpu_torch import checkpoints as ckpt
+from text2video_tpu_torch import device as devices
+from text2video_tpu_torch.train import trainer
+from text2video_tpu_torch.train.data import PoseClipDataset
+from text2video_tpu_torch.train.trainer import (
+    TrainConfig,
+    TrainerState,
+    create_trainer_state,
+    make_train_step,
+)
+
+
+class _StallWatchdog:
+    """Ends the process when training stops making progress.
+
+    A device call that never returns hangs the blocking read inside the step
+    loop, and no Python-level timeout can interrupt it. The watchdog thread
+    exits the process (code 3) when no progress is petted within ``timeout``
+    seconds; with the loop's auto-resume, an outer retry
+    (``until train-gan ...; do :; done`` keyed on the exit code) turns a hang
+    into a bounded delay instead of a lost run.
+    """
+
+    EXIT_CODE = 3
+    # The dataset upload and the first step come before the first pet.
+    FIRST_DEADLINE_EXTRA = 1800.0
+
+    def __init__(self, timeout: float, log_fn: Callable[[str], None]):
+        self.timeout = timeout
+        self.log_fn = log_fn
+        self._lock = threading.Lock()
+        self._deadline = time.time() + timeout + self.FIRST_DEADLINE_EXTRA
+        self._stopped = False
+        threading.Thread(target=self._run, daemon=True).start()
+
+    def pet(self) -> None:
+        with self._lock:
+            self._deadline = time.time() + self.timeout
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stopped = True
+
+    def _run(self) -> None:
+        while True:
+            time.sleep(5.0)
+            with self._lock:
+                if self._stopped:
+                    return
+                if time.time() > self._deadline:
+                    self.log_fn(
+                        f"watchdog: no training progress in "
+                        f"{self.timeout:.0f}s, exiting {self.EXIT_CODE} for "
+                        "resume")
+                    os._exit(self.EXIT_CODE)
+
+
+def _to_device(batch: Dict[str, np.ndarray],
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    """A host batch on ``device``; for a card, through pinned memory with
+    asynchronous copies (the step's first kernel waits for them on the
+    stream)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def _unit(x_u8: torch.Tensor) -> torch.Tensor:
+    return x_u8.float() / 127.5 - 1.0
+
+
+def train_gan(
+    dataset: PoseClipDataset,
+    cfg: Optional[TrainConfig] = None,
+    steps: int = 1000,
+    batch_size: int = 2,
+    seed: int = 0,
+    ckpt_dir: Optional[str] = None,
+    save_every: int = 200,
+    log_every: int = 10,
+    device_data: bool = False,
+    sample_every: int = 0,
+    stall_timeout: float = 0.0,
+    vgg_params=None,
+    log_fn: Callable[[str], None] = print,
+    device=None,
+) -> TrainerState:
+    """Train the pose2frame GAN on ``device`` (the card unless the caller
+    names another); returns the final state.
+
+    ``device_data=True`` keeps the whole dataset resident on the device as
+    uint8 (one upload) and gathers clips by index there, so a step moves only
+    a [B, T] index array; the dataset must fit the device's memory. Otherwise
+    each batch is made on the host and copied through pinned memory.
+
+    With ``ckpt_dir`` the run resumes from the newest finished step there,
+    saves every ``save_every`` steps and at the end, and with
+    ``sample_every`` writes [real | fake | label] strips beside the
+    checkpoints. ``stall_timeout > 0`` arms a :class:`_StallWatchdog`.
+    """
+    device = devices.resolve(device)
+    w, h = dataset.canvas
+    cfg = cfg or TrainConfig(height=h, width=w)
+    if (cfg.aug_jitter_px > 0 or cfg.aug_drop_prob > 0
+            or cfg.aug_face_drop_prob > 0 or cfg.aug_scale_crop):
+        raise NotImplementedError(
+            "label augmentation (aug_jitter_px, aug_drop_prob, "
+            "aug_face_drop_prob, aug_scale_crop) is not ported: see "
+            "ROADMAP.md, train/augment.py with the augmented device-data "
+            "branch")
+    accum = trainer.safe_grad_accum(cfg, batch_size, dataset.clip_len)
+    if accum != cfg.grad_accum:
+        log_fn(f"grad_accum {cfg.grad_accum} -> {accum} "
+               "(trainer.safe_grad_accum)")
+        cfg = dataclasses.replace(cfg, grad_accum=accum)
+    state = create_trainer_state(cfg, seed=seed, vgg_params=vgg_params,
+                                 device=device)
+    if ckpt_dir is not None and ckpt.latest_step_dir(ckpt_dir):
+        state = ckpt.restore_state(ckpt_dir, state)
+        log_fn(f"resumed from step {state.step}")
+    step_fn = make_train_step(cfg)
+
+    if device_data:
+        labels_u8, reals_u8, centers_np = dataset.flat_arrays()
+        labels_all = torch.from_numpy(labels_u8).to(device)
+        reals_all = torch.from_numpy(reals_u8).to(device)
+        centers_all = torch.from_numpy(centers_np).to(device)
+        log_fn(f"device-resident dataset: {labels_u8.nbytes / 1e6:.0f} MB "
+               f"labels + {reals_u8.nbytes / 1e6:.0f} MB frames uploaded "
+               "once")
+
+    # Visual training snapshots (the role of vid2vid's HTML snapshot pages):
+    # one fixed clip through the current generator, written as a
+    # [real | fake | label] strip beside the checkpoints.
+    sample_batch = None
+    if sample_every > 0 and ckpt_dir is not None:
+        sample_batch = dataset.batch(np.random.RandomState(123), 1)
+
+    def save_snapshot(step_num: int) -> None:
+        import cv2
+
+        with torch.no_grad():
+            fakes, _ = trainer._generate_clip(
+                state.generator, cfg,
+                torch.from_numpy(sample_batch["labels"]).to(device),
+                torch.from_numpy(sample_batch["reals"]).to(device))
+        fakes = fakes.cpu().numpy()
+
+        def to_u8(x):
+            return np.clip((x + 1.0) * 127.5, 0, 255).astype(np.uint8)
+
+        strip = np.concatenate([
+            np.concatenate(list(to_u8(sample_batch["reals"][0])), axis=1),
+            np.concatenate(list(to_u8(fakes[0])), axis=1),
+            np.concatenate(list(to_u8(sample_batch["labels"][0])), axis=1),
+        ], axis=0)
+        os.makedirs(ckpt_dir, exist_ok=True)
+        cv2.imwrite(os.path.join(ckpt_dir, f"sample_{step_num:08d}.jpg"),
+                    cv2.cvtColor(strip, cv2.COLOR_RGB2BGR))
+
+    rng = np.random.RandomState(seed)
+    t0 = time.time()
+    frames_done = 0
+    last_saved = -1
+    watchdog = (_StallWatchdog(stall_timeout, log_fn)
+                if stall_timeout > 0 else None)
+    for i in range(steps):
+        if device_data:
+            idx = torch.from_numpy(np.stack(
+                [dataset.sample_clip_indices(rng)
+                 for _ in range(batch_size)])).to(device)
+            batch = {"labels": _unit(labels_all[idx]),
+                     "reals": _unit(reals_all[idx]),
+                     "face_centers": centers_all[idx]}
+        else:
+            batch = _to_device(dataset.batch(
+                rng, batch_size,
+                with_flow=cfg.flow_supervision == "reference"), device)
+        state, metrics = step_fn(state, batch)
+        frames_done += batch_size * dataset.clip_len
+        if (i + 1) % log_every == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            dt = time.time() - t0
+            log_fn(f"step {state.step}: "
+                   + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items()))
+                   + f" | {frames_done / dt:.1f} frames/s")
+            if watchdog is not None:
+                watchdog.pet()  # the float() above waited for the step
+        if sample_batch is not None and (i + 1) % sample_every == 0:
+            save_snapshot(state.step)
+        if ckpt_dir is not None and (i + 1) % save_every == 0:
+            ckpt.save_state(ckpt_dir, state, cfg)
+            last_saved = state.step
+    if ckpt_dir is not None and state.step != last_saved:
+        ckpt.save_state(ckpt_dir, state, cfg)
+    if watchdog is not None:
+        watchdog.stop()
+    return state
