@@ -21,7 +21,13 @@ calls, kernel B1 at batch 64, held against the scan; and the CLI's ``tts``
 that way), and training: ``cli.main(["train-gan", ...])`` takes steps at
 full width on a data set written from the golden frames, resumes, and its
 directory renders; a tiny f32 model's gradients on the card are held against
-the CPU's; one step runs at 896x512, batch 4 x clip 8.
+the CPU's; one step runs at 896x512, batch 4 x clip 8. Then the rest of the
+training workflow: an augmented batch (keypoint jitter, drops, face drops,
+zoom and crop) made on the card and on the CPU from the same draws,
+``train-gan --device-data --aug-*``, ``tools.eval_gan`` and
+``tools.eval_gan_many`` on snapshots of the directory it trained (rendered
+through B1, the weights swapped under one renderer), and
+``tools.make_synthetic_frames`` feeding a dataset.
 
 Prints one line per phase, then a JSON line with each kernel's launches on
 the serving path (and on each CLI path), its error against the plain
@@ -45,6 +51,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -152,10 +159,10 @@ BATCH_TEXTS = (  # four utterances of different lengths and names
 )
 
 
-def run_cli(argv):
-    """``cli.main(argv)`` in this process with the launch counters at 0:
-    (the JSON it printed, wall seconds, launches by kernel)."""
-    from text2video_tpu_torch import cli
+def run_main(main_fn, argv):
+    """``main_fn(argv)`` (an entry point that returns its exit code) in this
+    process with the launch counters at 0: (the lines it printed, wall
+    seconds, launches by kernel)."""
     from text2video_tpu_torch.ops import fused_pose, fused_resblock
 
     buf = io.StringIO()
@@ -164,13 +171,22 @@ def run_cli(argv):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
+        rc = main_fn(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    check(rc == 0, f"{main_fn.__module__} {argv[0]} returned {rc}")
     launches = {"conv3x3_stats": fused_resblock.launches,
                 "synthesize_and_smooth": fused_pose.launches}
-    return json.loads(buf.getvalue().strip().splitlines()[-1]), wall, launches
+    return buf.getvalue().strip().splitlines(), wall, launches
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` through :func:`run_main`: (the JSON of its last
+    line, wall seconds, launches by kernel)."""
+    from text2video_tpu_torch import cli
+
+    lines, wall, launches = run_main(cli.main, argv)
+    return json.loads(lines[-1]), wall, launches
 
 
 def check_mp4(out: dict, hw) -> None:
@@ -526,14 +542,74 @@ def jacobi_phases(data: str, ckpt: str, out_dir: str, scan_renderer,
     return by_path
 
 
+class RecordTrainSteps:
+    """While active, every step ``train_gan`` takes is timed and its metrics
+    read, through a wrapper around the step the loop builds: ``records``
+    holds (seconds, metrics) per step; appending True to ``profile_next``
+    runs the next step under the profiler (its ``device_profile`` goes to
+    ``profiles``, its seconds are nan)."""
+
+    def __enter__(self):
+        from text2video_tpu_torch.train import loop
+
+        self.loop, self.make_step = loop, loop.make_train_step
+        self.records, self.profiles, self.profile_next = [], [], []
+
+        def recording_make(cfg):
+            step = self.make_step(cfg)
+
+            def recorded(state, batch):
+                if self.profile_next and self.profile_next.pop():
+                    out = []
+                    self.profiles.append(device_profile(
+                        lambda: out.append(step(state, batch)), 1))
+                    (state, metrics), seconds = out[0], float("nan")
+                else:
+                    (state, metrics), seconds = timed(
+                        lambda: step(state, batch))
+                self.records.append((seconds, {k: float(v)
+                                               for k, v in metrics.items()}))
+                return state, metrics
+
+            return recorded
+
+        loop.make_train_step = recording_make
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.make_train_step = self.make_step
+
+
+def run_train(rec: RecordTrainSteps, argv, steps: int, ckpt: str):
+    """``train-gan`` (``argv``) for ``steps`` more steps under ``rec``: (the
+    step the run ended at, this run's (seconds, metrics) records, the lines
+    it printed). Every metric must be finite and no inference kernel
+    launched."""
+    from text2video_tpu_torch import cli
+    from text2video_tpu_torch.train import trainer
+
+    del rec.records[:]
+    lines, _, n = run_main(cli.main, argv + ["--steps", str(steps)])
+    out = json.loads(lines[-1])
+    check(n["conv3x3_stats"] == 0 and n["synthesize_and_smooth"] == 0,
+          f"train-gan launched an inference kernel: {n}")
+    check(len(rec.records) == steps, f"{len(rec.records)} steps recorded")
+    for _, metrics in rec.records:
+        check(set(metrics) == set(trainer.METRICS)
+              and all(np.isfinite(v) for v in metrics.values()),
+              f"train-gan metrics not finite: {metrics}")
+    check(out["ckpt"] == ckpt, f"train-gan printed {out}")
+    return out["steps"], list(rec.records), lines
+
+
 def train_phases(tmp: str, labels: torch.Tensor) -> dict:
     """``train-gan`` through ``cli.main`` at full width on a data set written
     from the golden frames (steps, resume, the directory as a renderer
     checkpoint, ``jacobi_quality`` on it, three variants of a step), a tiny
     f32 model's gradients on the card against the CPU's, and one step at
-    896x512. Returns the launches of the training path (none: training runs
-    plain convs, as in the JAX package)."""
-    from text2video_tpu_torch import cli
+    896x512; then :func:`workflow_phases` on the same data set. Returns the
+    launches by path (none in training: it runs plain convs, as in the JAX
+    package)."""
     from text2video_tpu_torch.checkpoints import (
         STATE_NAME,
         latest_step_dir,
@@ -543,58 +619,25 @@ def train_phases(tmp: str, labels: torch.Tensor) -> dict:
     from text2video_tpu_torch.golden import write_training_assets
     from text2video_tpu_torch.ops import fused_resblock
     from text2video_tpu_torch.tools import jacobi_quality
-    from text2video_tpu_torch.train import loop, trainer
+    from text2video_tpu_torch.train import trainer
 
     batch_size, clip_len = 2, 8
     images, keypoints = write_training_assets(
         os.path.join(tmp, "train"), n_frames=24, canvas=(512, 384))
     ckpt = os.path.join(tmp, "gan")
-    argv = ["train-gan", "--images", images, "--keypoints", keypoints,
-            "--ckpt", ckpt, "--width", "512", "--height", "384",
-            "--clip-len", str(clip_len), "--batch-size", str(batch_size)]
-
-    # Every step the loop takes is timed and its metrics read, through a
-    # wrapper around the step the loop builds; ``profile_next`` runs the next
-    # step under the profiler.
-    records, profiles, profile_next = [], [], []
-    make_step = loop.make_train_step
-
-    def recording_make(cfg):
-        step = make_step(cfg)
-
-        def recorded(state, batch):
-            if profile_next and profile_next.pop():
-                out = []
-                profiles.append(device_profile(
-                    lambda: out.append(step(state, batch)), 1))
-                (state, metrics), seconds = out[0], float("nan")
-            else:
-                (state, metrics), seconds = timed(lambda: step(state, batch))
-            records.append((seconds, {k: float(v)
-                                      for k, v in metrics.items()}))
-            return state, metrics
-
-        return recorded
+    base_argv = ["train-gan", "--images", images, "--keypoints", keypoints,
+                 "--width", "512", "--height", "384", "--clip-len",
+                 str(clip_len), "--batch-size", str(batch_size)]
+    argv = base_argv + ["--ckpt", ckpt]
 
     def train(extra, steps):
-        """``train-gan`` with ``extra`` for ``steps`` steps: (the step the
-        run ended at, this run's (seconds, metrics) records)."""
-        del records[:]
-        out, _, n = run_cli(argv + ["--steps", str(steps)] + extra)
-        check(n["conv3x3_stats"] == 0 and n["synthesize_and_smooth"] == 0,
-              f"train-gan launched an inference kernel: {n}")
-        check(len(records) == steps, f"{len(records)} steps recorded")
-        for _, metrics in records:
-            check(set(metrics) == set(trainer.METRICS)
-                  and all(np.isfinite(v) for v in metrics.values()),
-                  f"train-gan metrics not finite: {metrics}")
-        check(out["ckpt"] == ckpt, f"train-gan printed {out}")
-        return out["steps"], list(records)
+        return run_train(steps_rec, argv + extra, steps, ckpt)
 
-    loop.make_train_step = recording_make
-    try:
+    with RecordTrainSteps() as steps_rec:
+        profile_next, profiles = steps_rec.profile_next, steps_rec.profiles
         torch.cuda.reset_peak_memory_stats()
-        (step_n, recs), wall = timed(lambda: train(["--device-data"], 3))
+        (step_n, recs, _), wall = timed(
+            lambda: train(["--device-data"], 3))
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         check(step_n == 3, f"train-gan ended at step {step_n}")
         # G and every discriminator moved away from the seed's init.
@@ -627,7 +670,7 @@ def train_phases(tmp: str, labels: torch.Tensor) -> dict:
 
         # A second call resumes; its one step runs under the profiler.
         profile_next.append(True)
-        step_n, recs = train(["--device-data"], 1)
+        step_n, recs, _ = train(["--device-data"], 1)
         check(step_n == 4, f"resumed run ended at step {step_n}, not 4")
         busy, n_kernels, top = profiles[-1]
         phase("train_gan_resume", steps=step_n, device_ms_per_step=busy,
@@ -638,7 +681,7 @@ def train_phases(tmp: str, labels: torch.Tensor) -> dict:
                 ("lambda_adv_0", ["--device-data", "--lambda-adv", "0"]),
                 ("host_data", [])):
             torch.cuda.reset_peak_memory_stats()
-            step_n, recs = train(extra, 2)
+            step_n, recs, _ = train(extra, 2)
             variants[name] = dict(
                 step_s=recs[1][0], g_loss=recs[1][1]["g_loss"],
                 d_loss=recs[1][1]["d_loss"],
@@ -647,8 +690,7 @@ def train_phases(tmp: str, labels: torch.Tensor) -> dict:
         check(variants["lambda_adv_0"]["d_loss"] == 0.0,
               f"lambda_adv=0 gave d_loss {variants['lambda_adv_0']}")
         phase("train_gan_variants", second_step_of_each=json.dumps(variants))
-    finally:
-        loop.make_train_step = make_step
+    plain_step_s = float(np.median(step_s))
 
     # The training directory is a renderer checkpoint: 8 frames through B1.
     renderer = load_renderer(ckpt, get_profile("fadg0"))
@@ -741,7 +783,247 @@ def train_phases(tmp: str, labels: torch.Tensor) -> dict:
           peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
           metrics=json.dumps(metrics))
     check(finite, f"train step at 896x512 is not finite: {metrics}")
-    return {"train_gan": {"conv3x3_stats": 0, "synthesize_and_smooth": 0}}
+    del state, batch
+    torch.cuda.empty_cache()
+    by_path = {"train_gan": {"conv3x3_stats": 0, "synthesize_and_smooth": 0}}
+    by_path.update(workflow_phases(tmp, images, keypoints, base_argv,
+                                   plain_step_s))
+    return by_path
+
+
+def unit_to_u8(x: torch.Tensor) -> torch.Tensor:
+    """Frames in [-1, 1] back to the uint8 levels they were made from."""
+    return torch.round((x.cpu() + 1.0) * 127.5).to(torch.uint8)
+
+
+def snapshot(train_dir: str, dst: str) -> int:
+    """The newest step of the training directory ``train_dir`` and its
+    ``config.json`` as a training directory ``dst`` of its own (the state
+    file is linked, not copied). Returns the step."""
+    from text2video_tpu_torch.checkpoints import (
+        CONFIG_NAME,
+        STATE_NAME,
+        latest_step_dir,
+    )
+
+    step_dir = latest_step_dir(train_dir)
+    name = os.path.basename(step_dir)
+    os.makedirs(os.path.join(dst, name))
+    os.link(os.path.join(step_dir, STATE_NAME),
+            os.path.join(dst, name, STATE_NAME))
+    shutil.copyfile(os.path.join(train_dir, CONFIG_NAME),
+                    os.path.join(dst, CONFIG_NAME))
+    return int(name.split("_")[1])
+
+
+AUG_FLAGS = ["--aug-jitter", "1.5", "--aug-drop", "0.05", "--aug-face-drop",
+             "0.1", "--aug-scale-crop"]
+AUG_KW = dict(jitter_px=1.5, drop_prob=0.05, face_drop_prob=0.1)
+EVAL_KEYS = ("psnr_db", "ssim", "mouth_psnr_db", "mouth_ssim")
+REALS_TOL = 1e-5  # card against CPU bilinear resize, values in [-1, 1]
+
+
+def workflow_phases(tmp: str, images: str, keypoints: str, train_argv,
+                    plain_step_s: float) -> dict:
+    """The rest of the training workflow at full width on the training
+    phases' data set: an augmented batch on the card against the CPU from the
+    same draws, ``train-gan`` with every ``--aug-*`` (``train_argv`` is the
+    plain command without its ``--ckpt``; ``plain_step_s`` the plain
+    device-data step of this call), ``eval_gan`` and ``eval_gan_many`` on
+    snapshots of its directory, and ``make_synthetic_frames`` feeding a
+    dataset. Returns the launches by path."""
+    from text2video_tpu_torch.tools import (
+        eval_gan,
+        eval_gan_many,
+        make_synthetic_frames,
+    )
+    from text2video_tpu_torch.train import augment
+    from text2video_tpu_torch.train.data import PoseClipDataset
+
+    b, t, canvas = 2, 8, (512, 384)
+
+    # ---- one augmented batch, card against CPU, from the same draws ---------
+    ds = PoseClipDataset(images, keypoints, canvas=canvas, clip_len=t,
+                         cache_labels=False, split="train")
+    reals_u8, centers = ds.flat_reals_centers()
+    host = ([torch.from_numpy(x) for x in ds.flat_track_arrays()],
+            torch.from_numpy(reals_u8), torch.from_numpy(centers))
+    card = ([x.cuda() for x in host[0]], host[1].cuda(), host[2].cuda())
+    rng = np.random.RandomState(0)
+    idx = torch.from_numpy(np.stack(
+        [ds.sample_clip_indices(rng) for _ in range(b)]))
+    draws = augment.draw_augment(
+        b, t, torch.Generator(device="cuda").manual_seed(0), scale_crop=True,
+        **AUG_KW)
+    # One frame's face is blanked for certain, and one sample crops the far
+    # corner of the enlarged frame.
+    draws.face[0] = 0.0
+    draws.crop[1] = 0.999
+    draws_host = draws.to("cpu")
+    scales = augment.scale_crop_scales(544.0 / 512.0 - 1.0)
+    by_scale = {}
+    for s in scales:
+        on_card, off_card = augment.augmented_batch(
+            *card, idx.cuda(), draws, canvas, scale=s, **AUG_KW)
+        on_host, off_host = augment.augmented_batch(
+            *host, idx, draws_host, canvas, scale=s, **AUG_KW)
+        # Pixels: the card's x / 127.5 - 1 may round its last bit another way.
+        label_diff = int((unit_to_u8(on_card["labels"]).int()
+                          - unit_to_u8(on_host["labels"]).int()).abs().max())
+        reals_err = float((on_card["reals"].cpu()
+                           - on_host["reals"]).abs().max())
+        check(on_card["labels"].shape == (b, t, 384, 512, 3)
+              and on_card["labels"].device.type == "cuda",
+              f"augmented labels {on_card['labels'].shape}")
+        check(label_diff == 0,
+              f"aug labels at scale {s}: card differs from CPU by "
+              f"{label_diff}")
+        check(reals_err <= REALS_TOL,
+              f"aug reals at scale {s}: card vs CPU {reals_err}")
+        check(torch.equal(off_card.cpu(), off_host)
+              and torch.equal(on_card["face_centers"].cpu(),
+                              on_host["face_centers"]),
+              f"aug offsets or centres at scale {s} differ from the CPU's")
+        drawn = float((on_host["labels"] > -1.0).float().mean())
+        check(drawn > 0.002, f"aug labels at scale {s} are empty ({drawn})")
+        busy, n_kernels, _ = device_profile(
+            lambda: augment.augmented_batch(
+                *card, idx.cuda(), draws, canvas, scale=s, **AUG_KW), 1)
+        by_scale[f"{s:.4f}"] = dict(
+            device_ms=busy, kernels=n_kernels, reals_err=reals_err,
+            offsets=off_host.tolist(), drawn_share=drawn)
+    check(by_scale[f"{scales[0]:.4f}"]["offsets"] == [[0.0, 0.0]] * b
+          and by_scale[f"{scales[2]:.4f}"]["offsets"][1] == [32.0, 24.0],
+          f"crop offsets {by_scale}")
+    phase("aug_labels_card", batch=b, clip_len=t, hw="512x384",
+          label_diff_vs_cpu=0, reals_tol=REALS_TOL,
+          by_scale=json.dumps(by_scale))
+    del card, on_card
+
+    # ---- train-gan with every augmentation, its own directory ---------------
+    ckpt = os.path.join(tmp, "gan_aug")
+    argv = train_argv + ["--ckpt", ckpt, "--device-data", *AUG_FLAGS]
+    aug_s, aug_profiles, profile_aug = [], [], []
+    make_batch = augment.augmented_batch
+
+    def recorded_batch(*args, **kw):
+        if profile_aug and profile_aug.pop():
+            out = []
+            aug_profiles.append(device_profile(
+                lambda: out.append(make_batch(*args, **kw)), 1))
+            return out[0]
+        out, seconds = timed(lambda: make_batch(*args, **kw))
+        aug_s.append(seconds)
+        return out
+
+    snaps = [os.path.join(tmp, "snap_a"), os.path.join(tmp, "snap_b")]
+    augment.augmented_batch = recorded_batch
+    try:
+        with RecordTrainSteps() as rec:
+            torch.cuda.reset_peak_memory_stats()
+            step_n, recs, lines = run_train(rec, argv, 3, ckpt)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            check(step_n == 3 and snapshot(ckpt, snaps[0]) == 3,
+                  f"augmented train-gan ended at step {step_n}")
+            check(any("device-resident dataset (augmented)" in ln
+                      for ln in lines),
+                  f"train-gan did not log the augmented branch: {lines[:3]}")
+            # The run resumes its own directory; that step's batch and the
+            # step itself run under the profiler.
+            profile_aug.append(True)
+            rec.profile_next.append(True)
+            step_n, _, lines = run_train(rec, argv, 1, ckpt)
+            check(step_n == 4 and "resumed from step 3" in lines
+                  and snapshot(ckpt, snaps[1]) == 4,
+                  f"augmented resume ended at step {step_n}")
+            step_busy, step_kernels, _ = rec.profiles[-1]
+    finally:
+        augment.augmented_batch = make_batch
+    check(len(aug_s) == 3 and len(aug_profiles) == 1,
+          f"augmented batches recorded: {len(aug_s)}, {len(aug_profiles)}")
+    aug_busy, aug_kernels, aug_top = aug_profiles[0]
+    step_s = [s for s, _ in recs[1:]]
+    phase("train_gan_aug", hw="512x384", batch=b, clip_len=t, steps=step_n,
+          flags=" ".join(AUG_FLAGS), first_step_s=recs[0][0],
+          train_step_s=step_s, aug_batch_s=aug_s,
+          step_with_aug_s=float(np.median(step_s) + np.median(aug_s[1:])),
+          plain_device_data_step_s=plain_step_s,
+          aug_device_ms=aug_busy, aug_kernels=aug_kernels,
+          aug_top_ms_launches=aug_top, train_step_device_ms=step_busy,
+          train_step_kernels=step_kernels, peak_mem_gib=peak_gib,
+          metrics_last=json.dumps(recs[-1][1]), b1_launches=0,
+          b2_launches=0)
+    by_path = {"train_gan_aug": {"conv3x3_stats": 0,
+                                 "synthesize_and_smooth": 0}}
+
+    # ---- eval_gan and eval_gan_many on the two snapshots --------------------
+    clips, clip_len = 2, 16
+    data_args = ["--images", images, "--keypoints", keypoints, "--split",
+                 "holdout", "--clips", str(clips), "--clip-len",
+                 str(clip_len)]
+
+    def evaluate(ckpt_dir):
+        lines, wall, n = run_main(eval_gan.main,
+                                  ["--ckpt", ckpt_dir, *data_args])
+        row = json.loads(lines[-1])
+        check(n["conv3x3_stats"] == 18 * clips * clip_len
+              and n["synthesize_and_smooth"] == 0,
+              f"eval_gan launches {n}")
+        check(row["frames"] == clips * clip_len and row["split"] == "holdout"
+              and row["mouth_crop_px"] == 96
+              and all(np.isfinite(row[k]) for k in EVAL_KEYS),
+              f"eval_gan printed {row}")
+        return row, wall, n
+
+    row_a, wall, n = evaluate(snaps[0])
+    by_path["eval_gan"] = n
+    phase("eval_gan", ckpt_step=3, frames=row_a["frames"], wall_s=wall,
+          b1_launches=n["conv3x3_stats"], row=json.dumps(row_a))
+    prefix = os.path.join(tmp, "eval_")
+    lines, wall, n = run_main(
+        eval_gan_many.main,
+        ["--ckpts", *snaps, "--out-prefix", prefix, *data_args])
+    rows = [json.loads(ln) for ln in lines]
+    check(n["conv3x3_stats"] == 2 * 18 * clips * clip_len,
+          f"eval_gan_many launches {n}")
+    check([r.pop("ckpt") for r in rows] == snaps, "eval_gan_many ckpt names")
+    for name, row in zip(("snap_a", "snap_b"), rows):
+        with open(f"{prefix}{name}_holdout.json") as f:
+            check({k: v for k, v in json.load(f).items() if k != "ckpt"}
+                  == row, f"eval_gan_many wrote another row for {name}")
+    row_b, _, _ = evaluate(snaps[1])  # a fresh renderer on the second
+    check(rows[0] == row_a, f"eval_gan_many row 0 {rows[0]} != {row_a}")
+    check(rows[1] == row_b,
+          f"swapped weights: eval_gan_many row 1 {rows[1]} != a fresh "
+          f"eval_gan's {row_b}")
+    check(rows[0] != rows[1], f"the two checkpoints score the same: {rows}")
+    by_path["eval_gan_many"] = n
+    phase("eval_gan_many", ckpt_steps=[3, 4], wall_s=wall,
+          b1_launches=n["conv3x3_stats"], rows=json.dumps(rows),
+          row0_equals_eval_gan=True, row1_equals_fresh_eval_gan=True)
+
+    # ---- synthetic frames: stage 0 of the mouth recipes (host only) ---------
+    n_frames, out_dir = 12, os.path.join(tmp, "synthetic")
+    t0 = time.perf_counter()
+    lines, _, _ = run_main(make_synthetic_frames.main, [
+        "--keypoints", keypoints, "--out", out_dir, "--width", "896",
+        "--height", "512", "--source-width", "512", "--source-height", "384",
+        "--limit", str(n_frames)])
+    seconds = time.perf_counter() - t0
+    check(len(os.listdir(out_dir)) == n_frames
+          and f"wrote {n_frames} frames" in lines[-1],
+          f"make_synthetic_frames: {lines}")
+    ds = PoseClipDataset(out_dir, keypoints, canvas=(896, 512),
+                         source_canvas=(512, 384), clip_len=8,
+                         cache_labels=False)
+    labels, reals, _ = ds.sample_clip(np.random.RandomState(0))
+    check(ds.num_frames == n_frames and reals.shape == (8, 512, 896, 3)
+          and labels.shape == reals.shape and reals.std() > 10
+          and labels.std() > 1, f"dataset of synthetic frames: {reals.shape}")
+    phase("synthetic_frames", frames=n_frames, hw="896x512",
+          seconds_per_frame=seconds / n_frames,
+          dataset_frames=ds.num_frames)
+    return by_path
 
 
 def main() -> None:
@@ -1021,7 +1303,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         by_path.update(train_phases(tmp, labels[0]))
     check(all(by_path[p]["conv3x3_stats"] > 0 for p in by_path
-              if p != "train_gan"),
+              if not p.startswith("train_gan")),
           f"B1 was not launched on a serving path: {by_path}")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "text2video_tpu"))

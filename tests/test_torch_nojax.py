@@ -2,8 +2,9 @@
 submodule imports, the plain slice (pose stage -> rasterizer -> renderer ->
 mux) runs at a tiny size, the CLI's ``tts`` turns text into an mp4 on the
 golden data directory with a tiny checkpoint (scan and Jacobi decoding),
-``train-gan`` takes a step on files written from the golden frames and
-``jacobi_quality`` reads its directory, in a child process where importing
+``train-gan`` takes a step on files written from the golden frames (and an
+augmented one), ``jacobi_quality``, ``eval_gan`` and ``eval_gan_many`` read
+its directory and ``make_synthetic_frames`` draws frames, in a child process where importing
 jax, flax, optax, orbax or text2video_tpu fails."""
 
 import os
@@ -30,8 +31,10 @@ SCRIPT = textwrap.dedent(
         text2video_tpu_torch.__path__, "text2video_tpu_torch.")]
     for name in mods:
         importlib.import_module(name)
-    for sub in ("train.trainer", "train.data", "train.loop",
-                "tools.jacobi_quality", "models.discriminator",
+    for sub in ("train.trainer", "train.data", "train.loop", "train.augment",
+                "tools.jacobi_quality", "tools.eval_gan",
+                "tools.eval_gan_many", "tools.make_synthetic_frames",
+                "models.discriminator",
                 "models.losses", "models.vgg"):
         assert "text2video_tpu_torch." + sub in mods, sub
 
@@ -75,7 +78,12 @@ SCRIPT = textwrap.dedent(
         assert os.path.getsize(tmp + "/jac/fadg0/Dotheymake.mp4") > 0
 
         from text2video_tpu_torch.golden import write_training_assets
-        from text2video_tpu_torch.tools import jacobi_quality
+        from text2video_tpu_torch.tools import (
+            eval_gan,
+            eval_gan_many,
+            jacobi_quality,
+            make_synthetic_frames,
+        )
 
         images, keypoints = write_training_assets(tmp + "/train", 12,
                                                   (128, 96))
@@ -90,6 +98,23 @@ SCRIPT = textwrap.dedent(
                                     images, "--keypoints", keypoints,
                                     "--clip-len", "4", "--sweeps", "1",
                                     *size]) == 0
+        assert cli.main(["train-gan", "--images", images, "--keypoints",
+                         keypoints, "--ckpt", tmp + "/gan", "--clip-len", "4",
+                         "--batch-size", "1", "--base-ch", "8", "--steps",
+                         "1", "--device-data", "--aug-jitter", "1.0",
+                         "--aug-scale-crop", *size]) == 0
+        assert os.path.isfile(tmp + "/gan/step_00000002/state.pt")
+        data_args = ["--images", images, "--keypoints", keypoints,
+                     "--clips", "1", "--clip-len", "4", *size]
+        assert eval_gan.main(["--ckpt", tmp + "/gan", *data_args]) == 0
+        assert eval_gan_many.main(["--ckpts", tmp + "/gan", "--out-prefix",
+                                   tmp + "/eval_", *data_args]) == 0
+        assert os.path.isfile(tmp + "/eval_gan_holdout.json")
+        assert make_synthetic_frames.main([
+            "--keypoints", keypoints, "--out", tmp + "/frames", "--width",
+            "128", "--height", "96", "--source-width", "512",
+            "--source-height", "384", "--limit", "2"]) == 0
+        assert len(os.listdir(tmp + "/frames")) == 2
     loaded = [k for k, v in sys.modules.items() if v is not None
               and k.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                       "text2video_tpu")]

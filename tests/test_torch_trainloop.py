@@ -1,7 +1,8 @@
 """Training data, loop and checkpoints of the port on the CPU: the dataset
 against the JAX dataset on files written by ``golden.write_training_assets``,
 ``train_gan`` in its host-data and device-data modes, save / restore / resume,
-``load_renderer`` on a training directory, and the CLI's ``train-gan``."""
+``load_renderer`` on a training directory, and the CLI's ``train-gan``
+(label augmentation has ``tests/test_torch_augment.py``)."""
 
 import dataclasses
 import json
@@ -119,16 +120,6 @@ def test_train_gan_host_and_device_data_agree(assets):
                     dev[0].generator.parameters()):
         np.testing.assert_allclose(p.detach().numpy(), q.detach().numpy(),
                                    atol=1e-6, rtol=0)
-
-
-@pytest.mark.parametrize("field,value", [
-    ("aug_jitter_px", 1.0), ("aug_drop_prob", 0.1),
-    ("aug_face_drop_prob", 0.1), ("aug_scale_crop", True)])
-def test_label_augmentation_is_not_ported(assets, field, value):
-    cfg = dataclasses.replace(CFG, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_gan(_dataset(assets), cfg, steps=1, device_data=True,
-                  device="cpu")
 
 
 def _batch(seed=0):
@@ -252,8 +243,14 @@ def test_cli_train_gan_on_cpu(assets, tmp_path, capsys):
     out = capsys.readouterr().out.strip().splitlines()
     assert json.loads(out[-1]) == {"steps": 2, "ckpt": d}
     assert ckpt.load_config(d)["dtype"] == "torch.bfloat16"
-    with pytest.raises(NotImplementedError):
-        cli.main(argv + ["--aug-jitter", "1.0"])
+    # Label augmentation: the dataset is built without its label cache and
+    # the labels are drawn from perturbed tracks every step.
+    assert cli.main(argv + ["--steps", "1", "--device-data", "--aug-jitter",
+                            "1.0", "--aug-drop", "0.05", "--aug-face-drop",
+                            "0.1", "--aug-scale-crop"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == {"steps": 3, "ckpt": d}
+    assert any("device-resident dataset (augmented)" in ln for ln in out)
 
     capsys.readouterr()
     assert jacobi_quality.main([

@@ -17,7 +17,8 @@ states. A step directory is written under a temporary name and renamed, so a
 directory named ``step_*`` is always a finished save. ``load_renderer`` reads
 either kind.
 
-Orbax checkpoints of the JAX package are not read here.
+Orbax checkpoints of the JAX package are not read here:
+``tools/orbax_to_torch.py`` (which needs JAX) converts one into this format.
 """
 
 from __future__ import annotations
@@ -130,6 +131,20 @@ def restore_state(ckpt_dir: str, template):
     return template
 
 
+def restore_generator_state(ckpt_dir: str) -> dict:
+    """Only the generator's ``state_dict`` (for inference), on the host: the
+    newest step of a training directory, or a renderer checkpoint's
+    ``generator.pt``. ``load_state_dict`` copies it into a renderer that is
+    already built, on its device; the optimizer moments of a training step
+    never reach that device."""
+    if latest_step_dir(ckpt_dir) is not None:
+        return _load_step(ckpt_dir, "cpu")["generator"]
+    weights = os.path.join(ckpt_dir, WEIGHTS_NAME)
+    if not os.path.exists(weights):
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    return torch.load(weights, map_location="cpu", weights_only=True)
+
+
 def save_renderer(renderer: Renderer, ckpt_dir: str,
                   height: Optional[int] = None) -> None:
     """Write ``renderer``'s generator to ``ckpt_dir``. ``height``: the
@@ -178,10 +193,6 @@ def load_renderer(
         dtype=torch.bfloat16,
         device=device,
     )
-    weights = os.path.join(ckpt_dir, WEIGHTS_NAME)
-    if os.path.exists(weights):
-        state = torch.load(weights, map_location=device, weights_only=True)
-    else:
-        state = _load_step(ckpt_dir, device)["generator"]
-    renderer.generator.load_state_dict(state, strict=True)
+    renderer.generator.load_state_dict(
+        restore_generator_state(ckpt_dir), strict=True)
     return renderer

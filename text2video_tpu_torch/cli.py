@@ -364,6 +364,8 @@ def cmd_train_gan(args) -> int:
         grad_accum=args.grad_accum,
         dtype=torch.bfloat16,
     )
+    augmenting = (args.aug_jitter > 0 or args.aug_drop > 0
+                  or args.aug_face_drop > 0 or args.aug_scale_crop)
     dataset = PoseClipDataset(
         images_dir=args.images,
         keypoints_dir=args.keypoints,
@@ -371,6 +373,9 @@ def cmd_train_gan(args) -> int:
         source_canvas=(args.source_width or args.width,
                        args.source_height or args.height),
         clip_len=args.clip_len,
+        # Augmented device-data training draws its labels on the device
+        # every step: no label cache is made.
+        cache_labels=not (augmenting and args.device_data),
         max_frames=args.max_frames,
         split=args.split,
         holdout_fraction=args.holdout_fraction,
@@ -597,7 +602,7 @@ def main(argv=None) -> int:
     p.add_argument("--split", choices=["train", "all"], default="train",
                    help="'train' (default) reserves a deterministic "
                    "held-out tail for honest evaluation "
-                   "(tools/jacobi_quality.py --split holdout); 'all' trains "
+                   "(tools/eval_gan.py --split holdout); 'all' trains "
                    "on every frame")
     p.add_argument("--holdout-fraction", type=float, default=0.1)
     p.add_argument("--sample-every", type=int, default=0,
@@ -606,8 +611,9 @@ def main(argv=None) -> int:
                    help="keep the whole dataset on the device; a step then "
                    "moves only a [B,T] index array")
     p.add_argument("--aug-jitter", type=float, default=0.0,
-                   help="keypoint jitter sigma in px (augmentation; not "
-                   "ported: any --aug-* raises)")
+                   help="keypoint jitter sigma in px (label augmentation; "
+                   "every --aug-* needs --device-data and is ignored "
+                   "without it)")
     p.add_argument("--aug-drop", type=float, default=0.0,
                    help="per-keypoint drop probability (augmentation)")
     p.add_argument("--aug-face-drop", type=float, default=0.0,

@@ -19,6 +19,9 @@ order the stages run (the coarsest first), ``ConvBlock_{2j}`` (7x7 stem),
 feature), ``ResBlock_{j*n .. j*n+n-1}`` and ``Upsample_j``.
 Kernels stay HWIO float32: the port keeps the flax layout.
 
+A tree from before the heads were merged (``img_head``, ``flow_head``,
+``mask_head``) is upgraded first (:func:`migrate_generator_params`).
+
 Nothing here imports JAX: the trees come in as mappings of numpy-convertible
 leaves, and the optimizer state is read by attribute (``g_opt[0].mu``).
 """
@@ -91,11 +94,41 @@ def _local_enhancers(p: Mapping[str, Any],
             raise KeyError(f"unmapped flax entry {name}")
 
 
+def migrate_generator_params(g_params: Mapping[str, Any]) -> Mapping[str, Any]:
+    """Upgrade generator params from before the heads were merged: the
+    separate img/flow/mask 7x7 head convs concatenate (on the output-channel
+    axis) into the single ``heads`` conv, which computes the same function.
+    A current tree passes through; the older two-branch encoder raises."""
+    p = g_params["params"] if "params" in g_params else g_params
+    trunk = p.get("GlobalTrunk_0", {})
+    if "ConvBlock_1" in trunk and "Conv_0" in trunk.get("ConvBlock_1", {}):
+        k1 = np.shape(trunk["ConvBlock_0"]["Conv_0"]["kernel"])
+        k2 = np.shape(trunk["ConvBlock_1"]["Conv_0"]["kernel"])
+        if (len(k1) == 4 and len(k2) == 4 and k1[:2] == (7, 7)
+                and k2[:2] == (7, 7)):
+            raise ValueError(
+                "checkpoint uses the legacy two-branch encoder; it cannot "
+                "be migrated exactly to the single-encoder generator — "
+                "retrain (train-gan) to produce a current checkpoint")
+    if "img_head" not in p:
+        return g_params
+    old = ("img_head", "flow_head", "mask_head")
+    new = {k: v for k, v in p.items() if k not in old}
+    new["heads"] = {
+        "kernel": np.concatenate(
+            [np.asarray(p[k]["kernel"]) for k in old], axis=-1),
+        "bias": np.concatenate([np.asarray(p[k]["bias"]) for k in old]),
+    }
+    return {"params": new} if "params" in g_params else new
+
+
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax CompositeGenerator params (with or without the top-level
     ``"params"`` key) -> state_dict for
     :class:`text2video_tpu_torch.models.generator.CompositeGenerator`.
-    Raises KeyError on any entry it cannot place."""
+    A tree with separate head convs is migrated first. Raises KeyError on
+    any entry it cannot place."""
+    tree = migrate_generator_params(tree)
     p = tree.get("params", tree)
     if "GlobalTrunk_0" not in p or "heads" not in p:
         raise KeyError(f"params: flax entries {sorted(p)}, expected "

@@ -4,9 +4,10 @@
 The reference trains vid2vid with ``train.py --dataset_mode pose ...
 --batchSize 8``. Here: the train step of ``train/trainer.py``, host-side
 clip sampling (``train/data.py``), wall-clock and loss logging, periodic
-saves with auto-resume (``checkpoints.py``). Not ported: the mesh (one
-device trains), and the augmented device-data branch with
-``train/augment.py`` (any ``aug_*`` set raises).
+saves with auto-resume (``checkpoints.py``), and with ``device_data`` the
+augmented branch: keypoint tracks resident on the device, perturbed and drawn
+into label maps every step (``train/augment.py``). Not ported: the mesh (one
+device trains).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from text2video_tpu_torch import checkpoints as ckpt
 from text2video_tpu_torch import device as devices
+from text2video_tpu_torch.train import augment as aug
 from text2video_tpu_torch.train import trainer
 from text2video_tpu_torch.train.data import PoseClipDataset
 from text2video_tpu_torch.train.trainer import (
@@ -91,6 +93,11 @@ def _to_device(batch: Dict[str, np.ndarray],
     return out
 
 
+# Step i of a run draws from generators seeded with this stride times
+# (seed + 1) plus i: no two steps of a run share a stream.
+_AUG_SEED_STRIDE = 1_000_003
+
+
 def _unit(x_u8: torch.Tensor) -> torch.Tensor:
     return x_u8.float() / 127.5 - 1.0
 
@@ -119,6 +126,13 @@ def train_gan(
     a [B, T] index array; the dataset must fit the device's memory. Otherwise
     each batch is made on the host and copied through pinned memory.
 
+    With ``device_data`` and any of ``cfg.aug_jitter_px``, ``aug_drop_prob``,
+    ``aug_face_drop_prob``, ``aug_scale_crop`` set, the keypoint tracks stay
+    on the device instead of the label maps, and every step perturbs them
+    and draws its labels there (``train/augment.py``); the draws of step
+    ``i`` are seeded from ``seed + 1`` and ``i``. Without ``device_data``
+    these fields are ignored.
+
     With ``ckpt_dir`` the run resumes from the newest finished step there,
     saves every ``save_every`` steps and at the end, and with
     ``sample_every`` writes [real | fake | label] strips beside the
@@ -127,13 +141,6 @@ def train_gan(
     device = devices.resolve(device)
     w, h = dataset.canvas
     cfg = cfg or TrainConfig(height=h, width=w)
-    if (cfg.aug_jitter_px > 0 or cfg.aug_drop_prob > 0
-            or cfg.aug_face_drop_prob > 0 or cfg.aug_scale_crop):
-        raise NotImplementedError(
-            "label augmentation (aug_jitter_px, aug_drop_prob, "
-            "aug_face_drop_prob, aug_scale_crop) is not ported: see "
-            "ROADMAP.md, train/augment.py with the augmented device-data "
-            "branch")
     accum = trainer.safe_grad_accum(cfg, batch_size, dataset.clip_len)
     if accum != cfg.grad_accum:
         log_fn(f"grad_accum {cfg.grad_accum} -> {accum} "
@@ -146,7 +153,29 @@ def train_gan(
         log_fn(f"resumed from step {state.step}")
     step_fn = make_train_step(cfg)
 
-    if device_data:
+    augment = device_data and (
+        cfg.aug_jitter_px > 0 or cfg.aug_drop_prob > 0
+        or cfg.aug_face_drop_prob > 0 or cfg.aug_scale_crop)
+    if cfg.aug_scale_crop and not device_data:
+        log_fn("aug_scale_crop requires --device-data (labels re-rasterize "
+               "on device from the transformed tracks); ignoring the flag")
+    if augment:
+        # Keypoint tracks stay resident (tiny) and each step draws its label
+        # maps from the perturbed tracks: no label upload at all.
+        reals_u8, centers_np = dataset.flat_reals_centers()
+        tracks = [torch.from_numpy(x).to(device)
+                  for x in dataset.flat_track_arrays()]
+        reals_all = torch.from_numpy(reals_u8).to(device)
+        centers_all = torch.from_numpy(centers_np).to(device)
+        scales = aug.scale_crop_scales(cfg.aug_scale_max)
+        aug_gen = torch.Generator(device=device)
+        aug_kw = dict(drop_prob=cfg.aug_drop_prob,
+                      jitter_px=cfg.aug_jitter_px,
+                      face_drop_prob=cfg.aug_face_drop_prob)
+        log_fn(f"device-resident dataset (augmented): "
+               f"{reals_u8.nbytes / 1e6:.0f} MB frames + keypoint tracks; "
+               "labels rasterize on device per step")
+    elif device_data:
         labels_u8, reals_u8, centers_np = dataset.flat_arrays()
         labels_all = torch.from_numpy(labels_u8).to(device)
         reals_all = torch.from_numpy(reals_u8).to(device)
@@ -195,6 +224,19 @@ def train_gan(
             idx = torch.from_numpy(np.stack(
                 [dataset.sample_clip_indices(rng)
                  for _ in range(batch_size)])).to(device)
+        if augment:
+            # One scale a step, chosen on the host: the step's shapes never
+            # wait for the device.
+            step_seed = (_AUG_SEED_STRIDE * (seed + 1) + i) % 2**32
+            scale = (scales[np.random.RandomState(step_seed).randint(
+                len(scales))] if cfg.aug_scale_crop else None)
+            aug_gen.manual_seed(step_seed)
+            batch, _ = aug.augmented_batch(
+                tracks, reals_all, centers_all, idx,
+                aug.draw_augment(batch_size, dataset.clip_len, aug_gen,
+                                 scale_crop=scale is not None, **aug_kw),
+                dataset.canvas, scale=scale, **aug_kw)
+        elif device_data:
             batch = {"labels": _unit(labels_all[idx]),
                      "reals": _unit(reals_all[idx]),
                      "face_centers": centers_all[idx]}

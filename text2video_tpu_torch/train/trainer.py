@@ -87,7 +87,7 @@ class TrainConfig:
     # Recompute each frame's generator forward (and VGG) in the backward
     # pass: the T-step unroll otherwise keeps every frame's activations.
     remat: bool = True
-    # Label augmentation (not ported: train_gan raises when any is set).
+    # Label augmentation (train/augment.py; device-data training only).
     aug_jitter_px: float = 0.0
     aug_drop_prob: float = 0.0
     aug_face_drop_prob: float = 0.0
