@@ -10,7 +10,10 @@ end at the flagship model's full width (512x384, base 64, 9 resblocks,
 bf16, seeded random weights, a 256-frame utterance from the golden pose
 frames): ``Text2VideoPipeline.synthesize`` with the fused pose op, the
 device rasterizer, the autoregressive renderer and the muxer. Then it runs
-the user's entry points the way a user calls them, ``cli.main`` with the
+the user's entry points the way a user calls them: first the port's bench
+(``cli.main(["bench", ...])`` in the modes ``gen``, ``jacobi --sweeps 3``
+and ``e2e``, each line checked and its kernel launches counted; ``gen``
+gives the warm generation rate), then ``cli.main`` with the
 port's ``tts``, ``audio``, ``tts-chinese`` and ``audio-batch`` commands, on
 a data directory written from the golden frames and that renderer saved as
 a checkpoint at height 384: text becomes an mp4 through the frontend (TTS,
@@ -18,19 +21,24 @@ forced alignment) and both kernels, and four utterances render as one
 batch, held at frame 0 against batch 1. Then Jacobi decoding (``--decode
 jacobi``: the 256-frame utterance in three sweeps of four 64-frame generator
 calls, kernel B1 at batch 64, held against the scan; and the CLI's ``tts``
-that way), and training: ``cli.main(["train-gan", ...])`` takes steps at
-full width on a data set written from the golden frames, resumes, and its
-directory renders; a tiny f32 model's gradients on the card are held against
-the CPU's; one step runs at 896x512, batch 4 x clip 8. Then the rest of the
-training workflow: an augmented batch (keypoint jitter, drops, face drops,
+that way), and training:
+``cli.main(["train-gan", ...])`` takes steps at full width on a data set
+written from the golden frames, resumes, and its directory renders (a batch
+row against batch 1 on its weights); a tiny f32 model's gradients on the
+card are held against the CPU's; two runs from one seed give bit-equal
+losses and weights, beside two without the step's deterministic scope (its
+cost), and so do two runs each with VGG's loss, with ``bptt`` and with a
+local enhancer; one step runs at 896x512, batch 4 x clip 8. Then the rest of
+the training workflow: an augmented batch (keypoint jitter, drops, face drops,
 zoom and crop) made on the card and on the CPU from the same draws,
 ``train-gan --device-data --aug-*``, ``tools.eval_gan`` and
 ``tools.eval_gan_many`` on snapshots of the directory it trained (rendered
 through B1, the weights swapped under one renderer), and
 ``tools.make_synthetic_frames`` feeding a dataset.
 
-Prints one line per phase, then a JSON line with each kernel's launches on
-the serving path (and on each CLI path), its error against the plain
+Prints one line per phase (each with ``at_s``, the seconds since the start),
+then a JSON line with each kernel's launches on
+the serving path (and on each CLI and bench path), its error against the plain
 version, its time beside the
 plain version's, a library call's (where one computes the same function)
 and its bound (the least time the card could take: bytes over 3.35 TB/s or
@@ -52,7 +60,6 @@ import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -81,10 +88,19 @@ GEN_TOL = 1e-3
 N_FRAMES = 256  # ~10 s at 25 fps
 CHUNK = 64
 JACOBI_SWEEPS = 3
+# Generator steps a scan profile covers: the profiler costs ~0.3 s of host
+# time a step, and the means a step hold at this depth.
+PROFILE_STEPS = 16
 GRAD_TOL = 1e-4  # card against CPU gradients, of a tensor's largest
 
 
+START = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
+    """One line of ``name=value`` fields, ending with ``at_s``: the seconds
+    since the script started."""
+    fields["at_s"] = round(time.perf_counter() - START, 1)
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
 
@@ -396,7 +412,8 @@ def cli_phases(tmp: str, data: str, ckpt: str, renderer,
             for f in (lambda v: v, torch.square)])
     total = sum(lengths)
     busy4, n_kernels4, top4 = device_profile(
-        lambda: model.generate_device(labels[:, :CHUNK]), CHUNK)
+        lambda: model.generate_device(labels[:, :PROFILE_STEPS]),
+        PROFILE_STEPS)
     phase("cli_audio_batch", frames=lengths, wall_s=wall,
           stage_seconds=json.dumps(outs[0]["stage_seconds"]),
           b1_launches=n["conv3x3_stats"], b1_shapes=sorted(shapes),
@@ -542,6 +559,102 @@ def jacobi_phases(data: str, ckpt: str, out_dir: str, scan_renderer,
     return by_path
 
 
+FLOPS_PER_FRAME = 395531255808  # the 512x384 generator's convs (bench.py)
+
+
+def run_bench(argv):
+    """``cli.main(["bench", *argv])`` through :func:`run_main`, with every
+    ``Text2VideoPipeline.synthesize`` it makes recorded: (its one JSON line,
+    wall seconds, launches by kernel, frames of each pipeline run). The line
+    must name this card."""
+    from text2video_tpu_torch import cli
+    from text2video_tpu_torch.pipeline import Text2VideoPipeline
+
+    frames, synthesize = [], Text2VideoPipeline.synthesize
+
+    def recording(self, *args, **kw):
+        run = synthesize(self, *args, **kw)
+        frames.append(run.num_frames)
+        return run
+
+    Text2VideoPipeline.synthesize = recording
+    try:
+        lines, wall, n = run_main(cli.main, ["bench", *argv])
+    finally:
+        Text2VideoPipeline.synthesize = synthesize
+    check(len(lines) == 1, f"bench {argv} printed {lines}")
+    line = json.loads(lines[0])
+    card = line["device"]
+    check(card["name"] == torch.cuda.get_device_name(0)
+          and card["power_limit"].endswith(" W"),
+          f"bench {argv}: device {card}")
+    check(line["value"] > 0, f"bench {argv}: {line}")
+    return line, wall, n, frames
+
+
+def check_mfu(name: str, mfu, flops_per_s: float) -> None:
+    """``mfu`` is in (0, 1] and is ``flops_per_s`` over the H100's dense
+    bf16 peak. The bench rounds ``mfu`` to 4 places from the unrounded rate
+    and prints the rate to 2, so the two agree to half a unit of the 4th
+    place and the rate's rounding (6e-5 together)."""
+    check(mfu is not None and 0 < mfu <= 1
+          and abs(mfu - flops_per_s / PEAK_BF16) <= 6e-5,
+          f"{name}: mfu {mfu} for {flops_per_s:.4g} FLOP/s")
+
+
+def bench_phases() -> dict:
+    """The port's bench, as ``python -m text2video_tpu_torch.cli bench``
+    runs it (full size: 512x384, base 64, 9 resblocks, bf16, 256 frames), in
+    three modes: ``gen`` (batch 1 and the batch-4 extra), ``jacobi
+    --sweeps 3`` and ``e2e``. Each line is checked and B1 counted: 18
+    launches a generator call (a warm run and three timed ones at each batch
+    in ``gen``; a warm run and three of 3 sweeps x 4 buckets in ``jacobi``;
+    a warm run and two of ``e2e``, with B2 once a run). Returns the launches
+    by path and the ``gen`` line's batch-1 rate."""
+    by_path = {}
+    timed_runs = 1 + 3
+
+    line, wall, n, _ = run_bench(["--mode", "gen"])
+    check(line["metric"] == "pose2frame_generation_fps_512x384_1chip"
+          and line["flops_per_frame"] == FLOPS_PER_FRAME,
+          f"bench_gen: {line}")
+    check_mfu("bench_gen", line["mfu"], FLOPS_PER_FRAME * line["value"])
+    check_mfu("bench_gen batch4", line["batch4"]["mfu"],
+              FLOPS_PER_FRAME * line["batch4"]["fps"])
+    check_launches("bench_gen", n, 2 * timed_runs * N_FRAMES, 0)
+    gen_fps = line["value"]
+    by_path["bench_gen"] = n
+    phase("bench_gen", wall_s=wall, b1_launches=n["conv3x3_stats"],
+          line=json.dumps(line))
+
+    line, wall, n, _ = run_bench(["--mode", "jacobi", "--sweeps",
+                                  str(JACOBI_SWEEPS)])
+    check(line["metric"]
+          == f"pose2frame_jacobi{JACOBI_SWEEPS}_fps_512x384_1chip",
+          f"bench_jacobi: {line}")
+    check_mfu("bench_jacobi", line["mfu"], FLOPS_PER_FRAME * line["value"])
+    check_mfu("bench_jacobi executed", line["mfu_executed"],
+              JACOBI_SWEEPS * FLOPS_PER_FRAME * line["value"])
+    check_launches("bench_jacobi", n,
+                   timed_runs * JACOBI_SWEEPS * N_FRAMES // CHUNK, 0)
+    by_path["bench_jacobi"] = n
+    phase("bench_jacobi", wall_s=wall, b1_launches=n["conv3x3_stats"],
+          line=json.dumps(line))
+
+    line, wall, n, frames = run_bench(["--mode", "e2e"])
+    check(line["metric"] == "e2e_text2video_realtime_factor_512x384_1chip"
+          and {"pose_synthesis", "rasterize", "render", "mux"}
+          <= set(line["stage_seconds"]), f"bench_e2e: {line}")
+    check(len(frames) == 3 and len(set(frames)) == 1 and frames[0] > 0,
+          f"bench_e2e: pipeline runs of {frames} frames")
+    check_launches("bench_e2e", n, sum(frames), len(frames))
+    by_path["bench_e2e"] = n
+    phase("bench_e2e", wall_s=wall, frames=frames,
+          b1_launches=n["conv3x3_stats"],
+          b2_launches=n["synthesize_and_smooth"], line=json.dumps(line))
+    return by_path, gen_fps
+
+
 class RecordTrainSteps:
     """While active, every step ``train_gan`` takes is timed and its metrics
     read, through a wrapper around the step the loop builds: ``records``
@@ -600,6 +713,177 @@ def run_train(rec: RecordTrainSteps, argv, steps: int, ckpt: str):
               f"train-gan metrics not finite: {metrics}")
     check(out["ckpt"] == ckpt, f"train-gan printed {out}")
     return out["steps"], list(rec.records), lines
+
+
+def state_diff(a, b, path: str = ""):
+    """(tensors that differ, the largest |difference|, the path of that
+    tensor, tensors) between two nested dicts / lists of tensors and plain
+    values of one layout."""
+    if isinstance(a, torch.Tensor):
+        if torch.equal(a, b):
+            return 0, 0.0, "", 1
+        return 1, float((a.double() - b.double()).abs().max()), path, 1
+    if isinstance(a, dict):
+        check(a.keys() == b.keys(), f"state keys differ at {path}")
+        parts = [state_diff(a[k], b[k], f"{path}/{k}") for k in a]
+    elif isinstance(a, (list, tuple)):
+        parts = [state_diff(x, y, f"{path}/{i}")
+                 for i, (x, y) in enumerate(zip(a, b))]
+    else:
+        check(a == b, f"state values differ at {path}: {a} != {b}")
+        return 0, 0.0, "", 0
+    worst = max(parts, key=lambda p: p[1], default=(0, 0.0, "", 0))
+    return (sum(p[0] for p in parts), worst[1], worst[2],
+            sum(p[3] for p in parts))
+
+
+def repeat_phase(tmp: str, train_argv) -> None:
+    """Two ``train-gan`` runs with one seed, data and flags (``train_argv``
+    without its ``--ckpt``, plus ``--device-data``), 3 steps each from a
+    fresh directory, must give bit-equal losses at every step and bit-equal
+    weights and Adam moments. Beside them, in turns, two runs with the train
+    step's deterministic scope replaced by a null context (PyTorch's
+    deterministic mode off: cuDNN picks its algorithms freely and the index
+    backwards add by atomics; the reflect pad keeps its ordered backward),
+    to show what the scope costs (step 2's wall seconds; step 3 of the first
+    run of each kind under the profiler) and whether those runs repeat."""
+    from text2video_tpu_torch.checkpoints import STATE_NAME, latest_step_dir
+    from text2video_tpu_torch.train import loop, trainer
+
+    steps, scope, runs, grads = 3, trainer.deterministic_algorithms, {}, {}
+    with RecordTrainSteps() as rec:
+        make_step = loop.make_train_step
+
+        def first_grads_make(cfg):  # keeps each run's first gradients
+            step = make_step(cfg)
+
+            def stepped(state, batch):
+                out = step(state, batch)
+                grads.setdefault(name, {
+                    f"{net}.{k}": p.grad.cpu()
+                    for net, mod in (("G", state.generator),
+                                     ("D", state.discriminators))
+                    for k, p in mod.named_parameters()})
+                return out
+
+            return stepped
+
+        loop.make_train_step = first_grads_make
+        try:
+            for name in ("off_a", "on_a", "on_b", "off_b"):
+                ckpt = os.path.join(tmp, f"repeat_{name}")
+                rec.profile_next[:] = ([name.endswith("_a")]
+                                       + [False] * (steps - 1))
+                if name.startswith("off"):
+                    trainer.deterministic_algorithms = contextlib.nullcontext
+                try:
+                    _, recs, _ = run_train(
+                        rec, train_argv + ["--ckpt", ckpt, "--device-data"],
+                        steps, ckpt)
+                finally:
+                    trainer.deterministic_algorithms = scope
+                state = torch.load(os.path.join(latest_step_dir(ckpt),
+                                                STATE_NAME),
+                                   map_location="cpu", weights_only=True)
+                runs[name] = dict(metrics=[m for _, m in recs], state=state,
+                                  step_s=[s for s, _ in recs[1:-1]],
+                                  device=(rec.profiles.pop()[:2]
+                                          if name.endswith("_a") else None))
+        finally:
+            loop.make_train_step = make_step
+    on = state_diff(runs["on_a"]["state"], runs["on_b"]["state"])
+    off = state_diff(runs["off_a"]["state"], runs["off_b"]["state"])
+    on_grads = state_diff(grads["on_a"], grads["on_b"])
+    check(runs["on_a"]["metrics"] == runs["on_b"]["metrics"] and on[0] == 0
+          and on_grads[0] == 0,
+          f"train-gan did not repeat: losses {runs['on_a']['metrics']} vs "
+          f"{runs['on_b']['metrics']}; {on[0]} of {on[3]} tensors differ, by "
+          f"up to {on[1]} at {on[2]}; first gradients {on_grads}")
+    # Where the first step's gradients part without the scope: each tensor's
+    # largest difference over its network's largest gradient.
+    scale = {net: max(float(g.abs().max()) for k, g in grads["off_a"].items()
+                      if k.startswith(net)) for net in ("G.", "D.")}
+    apart = sorted(
+        ((float((g - grads["off_b"][k]).abs().max()) / scale[k[:2]], k)
+         for k, g in grads["off_a"].items()), reverse=True)
+
+    def spread(mode):
+        a, b = runs[f"{mode}_a"], runs[f"{mode}_b"]
+        return dict(step_s=a["step_s"] + b["step_s"],
+                    device_ms=a["device"][0], kernels=a["device"][1])
+
+    phase("train_repeat", hw="512x384", batch=2, clip_len=8, steps=steps,
+          losses_equal=True, tensors_equal=f"{on[3]}/{on[3]}",
+          without_scope_losses_equal=(runs["off_a"]["metrics"]
+                                      == runs["off_b"]["metrics"]),
+          without_scope_tensors_differ=f"{off[0]}/{off[3]}",
+          without_scope_max_diff=off[1], without_scope_worst=off[2],
+          without_scope_first_grads_differ=(
+              f"{sum(d > 0 for d, _ in apart)}/{len(apart)}"),
+          without_scope_first_grads_most_apart=json.dumps(apart[:4]),
+          without_scope_first_step_losses_equal=(
+              runs["off_a"]["metrics"][0] == runs["off_b"]["metrics"][0]),
+          g_loss_by_step=[m["g_loss"] for m in runs["on_a"]["metrics"]],
+          after=json.dumps(spread("on")), before=json.dumps(spread("off")))
+
+
+def repeat_variants_phase(base, device: str) -> None:
+    """The train step's deterministic scope under the configurations the
+    ``train-gan`` phases do not reach, each its own backward: VGG's loss
+    (``use_vgg``, random filters: max-pool), ``bptt`` (the warp's gather
+    into the frames fed back) and a generator with a local enhancer (the
+    nearest resize; built by hand, as the trainer builds none). Each runs
+    twice from seed 0 for two steps of ``trainer.make_train_step`` on one
+    seeded batch of 2 clips of 4 frames at ``base``'s size, and must give
+    bit-equal losses and weights."""
+    from text2video_tpu_torch.models.generator import CompositeGenerator
+    from text2video_tpu_torch.train import trainer
+
+    g = torch.Generator(device=device).manual_seed(0)
+    shape = (2, 4, base.height, base.width, 3)
+    batch = {
+        "labels": torch.rand(shape, device=device, generator=g) * 2 - 1,
+        "reals": torch.rand(shape, device=device, generator=g) * 2 - 1,
+        "face_centers": torch.full((2, 4, 2), base.height / 2.0,
+                                   device=device),
+    }
+
+    def run(cfg, local: bool):
+        state = trainer.create_trainer_state(cfg, seed=0, device=device)
+        if local:
+            gen = CompositeGenerator(
+                3 * (cfg.n_frames_ctx + cfg.use_prev_frames),
+                base_ch=cfg.base_ch, n_blocks=cfg.n_blocks, dtype=cfg.dtype,
+                n_local_enhancers=1, fused_resblocks=False)
+            gen.reset_parameters(torch.Generator().manual_seed(0))
+            state.generator = gen.to(device).train()
+            state.g_opt = torch.optim.Adam(gen.parameters(), lr=cfg.lr,
+                                           betas=(cfg.beta1, 0.999), eps=1e-8)
+        step, losses = trainer.make_train_step(cfg), []
+        for _ in range(2):
+            (state, metrics), seconds = timed(lambda: step(state, batch))
+            losses.append({k: float(v) for k, v in metrics.items()})
+        weights = {net: {k: v.detach().cpu() for k, v in
+                         getattr(state, net).state_dict().items()}
+                   for net in ("generator", "discriminators")}
+        return losses, weights, seconds
+
+    out = {}
+    for name, cfg, local in (
+            ("vgg", dataclasses.replace(base, use_vgg=True), False),
+            ("bptt", dataclasses.replace(base, bptt=True), False),
+            ("local_enhancer", base, True)):
+        (la, wa, _), (lb, wb, s) = run(cfg, local), run(cfg, local)
+        diff = state_diff(wa, wb)
+        check(la == lb and diff[0] == 0 and all(
+            np.isfinite(v) for m in la for v in m.values()),
+            f"{name}: train steps did not repeat: losses {la} vs {lb}; "
+            f"{diff[0]} of {diff[3]} tensors differ, by up to {diff[1]} at "
+            f"{diff[2]}")
+        out[name] = dict(tensors_equal=f"{diff[3]}/{diff[3]}",
+                         g_loss=[m["g_loss"] for m in la], step2_s=s)
+    phase("train_repeat_variants", hw=f"{base.width}x{base.height}", batch=2,
+          clip_len=4, steps=2, losses_equal=True, by_config=json.dumps(out))
 
 
 def train_phases(tmp: str, labels: torch.Tensor) -> dict:
@@ -712,7 +996,18 @@ def train_phases(tmp: str, labels: torch.Tensor) -> dict:
         f"jacobi_quality: {quality}")
     phase("train_gan_renders", frames=8, b1_launches=n_b1,
           jacobi_quality=json.dumps(quality))
-    del renderer
+    # A batch row against batch 1 on these few-step weights: four 64-frame
+    # clips of the slice as one batch, and each alone.
+    rows = labels[:4 * CHUNK].reshape(4, CHUNK, *labels.shape[1:])
+    batched = renderer.render_many_device(rows)
+    alone = [renderer.render_many_device(rows[i:i + 1])[0] for i in range(4)]
+    phase("batch_rows_ckpt", ckpt_step=step_n, rows=4, frames=CHUNK,
+          first_diff_frame=[first_diff(a, batched[i])
+                            for i, a in enumerate(alone)],
+          max_diff=[int(np.abs(a.astype(int) - batched[i].astype(int)).max())
+                    for i, a in enumerate(alone)],
+          psnr_db=[psnr(a, batched[i]) for i, a in enumerate(alone)])
+    del renderer, batched, alone
 
     # ---- the autograd path on the card against the CPU ----------------------
     tiny = trainer.TrainConfig(height=32, width=32, face_crop=8, base_ch=8,
@@ -756,6 +1051,8 @@ def train_phases(tmp: str, labels: torch.Tensor) -> dict:
           worst_rel_err=json.dumps(worst), tol=GRAD_TOL,
           g_loss_card=grads["cuda"][1]["g_loss"],
           g_loss_cpu=grads["cpu"][1]["g_loss"])
+    repeat_phase(tmp, base_argv)
+    repeat_variants_phase(trainer.TrainConfig(height=384, width=512), "cuda")
 
     # ---- one step at 896x512, batch 4 x clip 8, reconstruction only ---------
     big = trainer.TrainConfig(height=512, width=896, lambda_adv=0.0,
@@ -1261,41 +1558,32 @@ def main() -> None:
         check(all(files.values()), f"empty output file: {files}")
         phase("slice", frames=run.num_frames, wall_s=wall,
               stage_seconds=json.dumps(run.stage_seconds), files=files,
-              label_diff_vs_cpu=int(label_diff))
+              label_diff_vs_cpu=int(label_diff),
+              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
-    # Warm generation rate at batch 1 (the renderer alone, 256 frames), three
-    # times: the host's share of a frame varies from run to run.
+    # Where the device time of a frame goes: warm frames under the profiler
+    # (which slows the host, so its wall clock is not the rate).
     labels = torch.from_numpy(warm.label_maps).to(dev)[None]
-    rates = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        chunks = renderer.generate_device(labels)
-        torch.cuda.synchronize()
-        rates.append(N_FRAMES / (time.perf_counter() - t0))
-        check(len(chunks) == N_FRAMES // CHUNK, "generate_device chunks")
-    phase("generate", frames=N_FRAMES, fps=float(np.median(rates)),
-          fps_runs=rates,
-          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-
-    # Where the device time of a frame goes: one warm chunk under the
-    # profiler (which slows the host, so its wall clock is not the rate).
     busy, n_kernels, top = device_profile(
-        lambda: renderer.generate_device(labels[:, :CHUNK]), CHUNK)
-    phase("profile", frames=CHUNK, device_ms_per_frame=busy,
+        lambda: renderer.generate_device(labels[:, :PROFILE_STEPS]),
+        PROFILE_STEPS)
+    phase("profile", frames=PROFILE_STEPS, device_ms_per_frame=busy,
           kernels_per_frame=n_kernels, top_ms_launches_per_frame=top)
-    # ---- 6. the user's entry points: the CLI, text (or audio) in, mp4 out --
-    pipeline.PoseStage = port_stage  # the CLI runs unpatched from here on
+    # ---- 6. the user's entry points: the bench (its gen line is the warm
+    # generation rate), then the CLI, text (or audio) in, mp4 out -----------
+    pipeline.PoseStage = port_stage  # both run unpatched from here on
+    by_path = {"slice": launches}
+    bench_paths, fps_batch1 = bench_phases()
+    by_path.update(bench_paths)
     from text2video_tpu_torch.checkpoints import save_renderer
     from text2video_tpu_torch.golden import write_golden_assets
 
-    by_path = {"slice": launches}
     with tempfile.TemporaryDirectory() as tmp:
         data = write_golden_assets(os.path.join(tmp, "data"))
         ckpt = os.path.join(tmp, "ckpt")
         save_renderer(renderer, ckpt, height=384)
-        by_path.update(cli_phases(tmp, data, ckpt, renderer, fps_batch1=float(
-            np.median(rates))))
+        by_path.update(cli_phases(tmp, data, ckpt, renderer,
+                                  fps_batch1=fps_batch1))
         # ---- 7. Jacobi decoding, 8. training -------------------------------
         by_path.update(jacobi_phases(data, ckpt, os.path.join(tmp, "jacobi"),
                                      renderer, labels[0]))
@@ -1310,6 +1598,7 @@ def main() -> None:
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
     # ---- 9. the card, 10. the result ----------------------------------------
+    phase("total", seconds=time.perf_counter() - START)
     print(json.dumps({"kernels": [
         {"name": "conv3x3_stats", "route": "cuda",
          "source": "text2video_tpu_torch/csrc/conv3x3_stats.cu",
@@ -1330,11 +1619,10 @@ def main() -> None:
          "bound_ms": b2_bound_ms, "bound_by": b2_bound_by,
          "library_ms": None},
     ]}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    from text2video_tpu_torch.bench import device_info
+
+    card = device_info(dev)  # as nvidia-smi --query-gpu=name,power.limit
+    print(f"{card['name']}, {card['power_limit']}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """The port's own host modules against their JAX-package originals on the
 same inputs (golden fadg0 frames, seeded timestamps and frames): the pose
 planner, blend and smoother, timestamps, config, keypoint table and
-dictionary loading, and the muxers' bytes. Also: the entry points run on
+dictionary loading and lookups, keypoint frames' point views and JSON dump,
+``device_trace``, and the muxers' bytes. Also: the entry points run on
 the card unless asked, and the compute-dtype weight copies follow
 ``load_state_dict``."""
 
@@ -131,6 +132,58 @@ def test_keypoint_table_and_dictionary_load_like_jax(tmp_path, layout):
     pd = tdicts.PoseDictionary.load(str(dict_path), layout)
     ref_pd = jdicts.PoseDictionary.load(str(dict_path), layout)
     assert (pd.entries, pd.layout) == (ref_pd.entries, ref_pd.layout)
+
+
+def test_keypoint_table_row_and_has_key_like_jax():
+    _, pdict, table, ts = golden_pose_inputs(n_frames=8)
+    _, ref, _ = _jax_pose_inputs(pdict, table, ts)
+    keys = list(ref._index)
+    clip = keys[0][0]
+    for key in keys[:3] + keys[-2:] + [(clip, 10**6), ("nobody", 0)]:
+        assert table.has_key(key) == ref.has_key(key)
+        if ref.has_key(key):
+            assert table.row(key) == ref.row(key)
+        else:
+            with pytest.raises(KeyError):
+                ref.row(key)
+            with pytest.raises(KeyError, match="not in table"):
+                table.row(key)
+
+
+def test_keypoint_frame_points_and_dump_like_jax(tmp_path):
+    from text2video_tpu.io import openpose as jop
+
+    from text2video_tpu_torch.io import openpose as top
+
+    src = str(sorted(GOLDEN_POSE_DIR.glob("*.json"))[0])
+    ours, ref = top.load_keypoint_frame(src), jop.load_keypoint_frame(src)
+    for name, shape in (("pose_pts", (25, 3)), ("face_pts", (70, 3))):
+        assert getattr(ours, name).shape == shape
+        np.testing.assert_array_equal(getattr(ours, name),
+                                      getattr(ref, name))
+    top.dump_keypoint_json(ours.raw, str(tmp_path / "ours.json"))
+    jop.dump_keypoint_json(ref.raw, str(tmp_path / "ref.json"))
+    assert (tmp_path / "ours.json").read_bytes() == (
+        tmp_path / "ref.json").read_bytes()
+    assert (tmp_path / "ours.json").read_text() == top.dumps_keypoint_json(
+        ours.raw)
+
+
+def test_device_trace_like_jax(tmp_path):
+    from text2video_tpu.utils.profiling import device_trace as jax_trace
+
+    from text2video_tpu_torch.utils.profiling import device_trace
+
+    for trace in (device_trace, jax_trace):  # None: a no-op in both
+        with trace(None):
+            x = 1
+        assert x == 1
+    with device_trace(str(tmp_path / "trace")):
+        torch.ones(8).sum()
+    written = os.listdir(tmp_path / "trace")
+    assert len(written) == 1 and written[0].endswith(".pt.trace.json")
+    with open(tmp_path / "trace" / written[0]) as f:
+        assert json.load(f)["traceEvents"]
 
 
 def _frames(t=5, h=48, w=64):

@@ -4,7 +4,8 @@ mux) runs at a tiny size, the CLI's ``tts`` turns text into an mp4 on the
 golden data directory with a tiny checkpoint (scan and Jacobi decoding),
 ``train-gan`` takes a step on files written from the golden frames (and an
 augmented one), ``jacobi_quality``, ``eval_gan`` and ``eval_gan_many`` read
-its directory and ``make_synthetic_frames`` draws frames, in a child process where importing
+its directory, ``make_synthetic_frames`` draws frames and the bench measures
+the scan and Jacobi decoding, in a child process where importing
 jax, flax, optax, orbax or text2video_tpu fails."""
 
 import os
@@ -31,7 +32,8 @@ SCRIPT = textwrap.dedent(
         text2video_tpu_torch.__path__, "text2video_tpu_torch.")]
     for name in mods:
         importlib.import_module(name)
-    for sub in ("train.trainer", "train.data", "train.loop", "train.augment",
+    for sub in ("bench", "train.trainer", "train.data", "train.loop",
+                "train.augment",
                 "tools.jacobi_quality", "tools.eval_gan",
                 "tools.eval_gan_many", "tools.make_synthetic_frames",
                 "models.discriminator",
@@ -115,6 +117,15 @@ SCRIPT = textwrap.dedent(
             "128", "--height", "96", "--source-width", "512",
             "--source-height", "384", "--limit", "2"]) == 0
         assert len(os.listdir(tmp + "/frames")) == 2
+
+    from text2video_tpu_torch import bench
+
+    tiny = dict(height=32, width=48, frames=4, base_ch=4, n_blocks=1,
+                device="cpu")
+    line = bench.gen_bench(1, with_extras=True, **tiny)
+    assert line["metric"] == "pose2frame_generation_fps_48x32_1chip", line
+    assert line["mfu"] is None and line["batch4"]["fps"] > 0, line
+    assert bench.jacobi_bench(2, **tiny)["value"] > 0
     loaded = [k for k, v in sys.modules.items() if v is not None
               and k.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                       "text2video_tpu")]

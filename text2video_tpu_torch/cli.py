@@ -5,15 +5,15 @@ Mirrors (reference):
   * ``text2video_tts.sh "<text>" <person> <f|m>``      -> ``tts``
   * ``text2video_audio.sh "<text>" <person>``          -> ``audio``
   * ``text2video_tts_chinese.sh "<text>" <person> f``  -> ``tts-chinese``
-plus ``audio-batch`` (many utterances as one generator batch), ``train-gan``
-and the frontend tools ``train-aligner``, ``train-aligner-zh``,
-``build-dict`` and ``build-dict-zh``. The commands take the JAX CLI's
+plus ``audio-batch`` (many utterances as one generator batch), ``train-gan``,
+the frontend tools ``train-aligner``, ``train-aligner-zh``, ``build-dict``
+and ``build-dict-zh``, and ``bench`` (``bench.py`` of this package, the
+counterpart of the root ``bench.py``). The commands take the JAX CLI's
 arguments (``train-gan`` without ``--n-model``: one device trains), plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions),
 and ``audio-batch`` also takes ``--pose-device``.
 ``--gan-checkpoint`` takes the port's checkpoint formats
 (``checkpoints.py``): a renderer checkpoint or ``train-gan``'s directory.
-The benchmark is not offered here.
 
 Usage: ``python -m text2video_tpu_torch.cli <command> ...``. The video
 commands print one JSON object: the run's name, frame count, files and
@@ -466,6 +466,12 @@ def cmd_build_dict_zh(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from text2video_tpu_torch import bench
+
+    return bench.run(args)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="text2video_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -645,6 +651,12 @@ def main(argv=None) -> int:
                    "must fit the device's memory)")
     _add_device(p)
     p.set_defaults(fn=cmd_train_gan)
+
+    p = sub.add_parser("bench", help="run the benchmark (one JSON line)")
+    from text2video_tpu_torch.bench import add_arguments
+
+    add_arguments(p)
+    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -139,6 +139,17 @@ class KeypointTable:
             index[key] = row
         return cls(face, pose, hands, has_hands, raws, index)
 
+    def row(self, key: Key) -> int:
+        """Table row for (clip, frame); raises KeyError if out of range —
+        the reference would crash with FileNotFoundError in the same case
+        (moving-sequence offset past the end of a clip)."""
+        if key not in self._index:
+            raise KeyError(f"keypoint frame {key} not in table")
+        return self._index[key]
+
+    def has_key(self, key: Key) -> bool:
+        return key in self._index
+
     def row_nearest(self, key: Key) -> int:
         """Row for (clip, frame), falling back to the clip's nearest
         existing frame. The shipped Chinese keypoint folders are sparse

@@ -48,6 +48,14 @@ class KeypointFrame:
     has_hands: bool
     raw: Dict[str, Any]
 
+    @property
+    def pose_pts(self) -> np.ndarray:
+        return self.pose.reshape(POSE_POINTS, 3)
+
+    @property
+    def face_pts(self) -> np.ndarray:
+        return self.face.reshape(FACE_POINTS, 3)
+
 
 def load_keypoint_json(path: str) -> Dict[str, Any]:
     with open(path, encoding="utf-8") as f:
@@ -107,6 +115,12 @@ def raw_with_tracks(
         vals = [float(v) for v in pose]
         person["pose_keypoints_2d"] = [vals] if nested else vals
     return out
+
+
+def dump_keypoint_json(raw: Dict[str, Any], path: str) -> None:
+    """Write with the same formatting as the reference's ``json.dump``."""
+    with open(path, "w") as f:
+        json.dump(raw, f)
 
 
 def dumps_keypoint_json(raw: Dict[str, Any]) -> str:

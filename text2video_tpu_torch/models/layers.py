@@ -54,12 +54,49 @@ class ParamCopy:
         return self.value
 
 
-def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """Reflect-pad the H and W axes of an NHWC tensor."""
-    if pad == 0:
-        return x
+def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     y = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
     return y.permute(0, 2, 3, 1)
+
+
+def _fold_reflected(g: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
+    """The gradient of a reflect pad of ``pad`` along ``dim``: the interior
+    of ``g`` plus its border rows added back onto the rows they mirror
+    (padded row ``i < pad`` copies row ``pad - i``)."""
+    n = g.shape[dim] - 2 * pad
+    out = g.narrow(dim, pad, n).clone()
+    out.narrow(dim, 1, pad).add_(g.narrow(dim, 0, pad).flip(dim))
+    out.narrow(dim, n - 1 - pad, pad).add_(
+        g.narrow(dim, n + pad, pad).flip(dim))
+    return out
+
+
+class _DeterministicReflectPad(torch.autograd.Function):
+    """``F.pad(mode="reflect")`` forward; a backward that sums the border
+    into the interior by elementwise adds in a fixed order. The CUDA backward
+    of ``F.pad`` accumulates with atomics, so its result varies run to run,
+    and PyTorch's deterministic mode (the train step runs in it) refuses
+    it."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, pad: int) -> torch.Tensor:
+        ctx.pad = pad
+        return _reflect_pad(x, pad)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        p = ctx.pad
+        return _fold_reflected(_fold_reflected(g, p, 1), p, 2), None
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad the H and W axes of an NHWC tensor. A pad that autograd
+    will differentiate takes :class:`_DeterministicReflectPad`."""
+    if pad == 0:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _DeterministicReflectPad.apply(x, pad)
+    return _reflect_pad(x, pad)
 
 
 class Conv(nn.Module):

@@ -16,10 +16,15 @@ with respect to G's parameters only, D's with respect to D's.
 
 The generator trains through plain convs (``fused_resblocks=False``): the
 fused conv + statistics op has no backward, here as in the JAX package.
+
+A step runs in PyTorch's deterministic mode (:func:`deterministic_algorithms`),
+so two runs from one seed on one card give bit-equal losses and weights, as
+the JAX package's training does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -125,6 +130,33 @@ def safe_grad_accum(cfg: TrainConfig, batch_size: int, clip_len: int) -> int:
     here."""
     del batch_size, clip_len  # no shape needs more on this backend
     return max(int(cfg.grad_accum), 1)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic mode (``torch.use_deterministic_algorithms``)
+    for the length of the block, the previous mode restored after it.
+
+    On a card the mode makes cuDNN pick deterministic convolution algorithms
+    and routes the scatter-adds of index and ``gather`` backwards (the face
+    crop; the flow warp when ``bptt`` feeds frames back) through ordered
+    sums; the reflect pad takes its own ordered backward
+    (``layers.reflect_pad``). An op with no deterministic form raises:
+    nothing falls back to an atomic path.
+
+    The mode's fill of every new allocation with NaN is turned off for the
+    block: no op of the step reads memory it has not written, so the fill
+    would only add a kernel per new tensor."""
+    enabled = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
 
 
 def _temporal_key(stride: int) -> str:
@@ -385,6 +417,10 @@ def make_train_step(cfg: TrainConfig) -> Step:
         return [a + g for a, g in zip(total, grads)]
 
     def step(state: TrainerState, batch):
+        with deterministic_algorithms():
+            return deterministic_step(state, batch)
+
+    def deterministic_step(state: TrainerState, batch):
         accum = max(int(cfg.grad_accum), 1)
         g_params = list(state.generator.parameters())
         d_params = list(state.discriminators.parameters())

@@ -1,11 +1,13 @@
-"""Per-stage wall-clock timing (counterpart of ``StageTimer`` in
-``text2video_tpu/utils/profiling.py``)."""
+"""Per-stage wall-clock timing and device tracing (counterpart of
+``text2video_tpu/utils/profiling.py``): a :class:`StageTimer` that pipeline
+stages wrap themselves in, and :func:`device_trace`, a ``torch.profiler``
+trace of the host and the card written to a directory."""
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 
 class StageTimer:
@@ -37,3 +39,25 @@ class StageTimer:
         ]
         return "stage timings:\n" + "\n".join(lines)
 
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]) -> Iterator[None]:
+    """``torch.profiler`` trace of the block (CPU, and CUDA where a card is
+    present), written to ``log_dir`` as a TensorBoard-loadable Chrome trace.
+    No-op when log_dir is None, so call sites can be unconditional."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
