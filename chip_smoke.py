@@ -9,7 +9,13 @@ same forward through the plain version, then drives the serving path end to
 end at the flagship model's full width (512x384, base 64, 9 resblocks,
 bf16, seeded random weights, a 256-frame utterance from the golden pose
 frames): ``Text2VideoPipeline.synthesize`` with the fused pose op, the
-device rasterizer, the autoregressive renderer and the muxer. Then it runs
+device rasterizer, the autoregressive renderer and the muxer, through the
+default DCT wire (coefficients encoded and packed on the card, JPEGs
+assembled from them on the host by the native codec); the wire's
+coefficients are held against the CPU's encode of the same frames (with
+TF32 switched on), and the slice runs under each wire in turns (``[wire]``).
+The fadg0 keypoints are also drawn on a 64x64 canvas, card against CPU
+(``[raster_small]``). Then it runs
 the user's entry points the way a user calls them: first the port's bench
 (``cli.main(["bench", ...])`` in the modes ``gen``, ``jacobi --sweeps 3``
 and ``e2e``, each line checked and its kernel launches counted; ``gen``
@@ -269,6 +275,139 @@ def first_diff(a: np.ndarray, b: np.ndarray) -> int:
     """Index of the first frame where ``a`` and ``b`` differ, -1 if none."""
     ne = np.flatnonzero((a != b).reshape(len(a), -1).any(axis=1))
     return int(ne[0]) if len(ne) else -1
+
+
+WIRE_EQ = 0.9999  # card against CPU coefficients: share equal (<= 1 level)
+
+
+def mp4_frame_count(path: str) -> int:
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    return n
+
+
+def wire_phase(renderer, frames_u8: np.ndarray, run_slice) -> None:
+    """The DCT wire on the card: the first CHUNK frames of the slice encoded
+    and packed on the card (TF32 switched on around it, which the encode
+    must ignore) and on the CPU with the port's own functions, unpacked and
+    compared; the native unpack against the numpy one on the card's bytes;
+    the decoded frames' PSNR against the uint8 frames; bytes a frame of
+    each wire; what the muxer's worker spends a frame under each (JPEGs
+    from coefficients, or cv2's I420->BGR + encode) and the AVI assembly of
+    a clip of those JPEGs; and the slice run under each wire (dct, yuv420,
+    yuv420, dct) with its render / render_pull / mux seconds."""
+    import cv2
+
+    from text2video_tpu_torch.io import wire_native
+    from text2video_tpu_torch.io.video import (
+        _assemble_avi,
+        _encode_jpeg,
+        yuv420_to_bgr,
+    )
+    from text2video_tpu_torch.ops import dct
+
+    cfg = renderer.config
+    check(cfg.wire_format == "dct" and cfg.wire_packed,
+          f"the default wire is {cfg.wire_format}, packed {cfg.wire_packed}")
+    n, h, w = CHUNK, *frames_u8.shape[1:3]
+    x = torch.from_numpy(frames_u8[:n]).float() / 127.5 - 1.0  # on the CPU
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card = renderer._encode_wire(x.cuda()).cpu().numpy()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    host = renderer._encode_wire(x).numpy()
+    check(card.dtype == host.dtype == np.uint8 and card.shape == host.shape,
+          f"wire {card.dtype} {card.shape} vs {host.dtype} {host.shape}")
+    got = renderer._split_wire(card, n, h, w)
+    want = renderer._split_wire(host, n, h, w)
+    n_eq = sum(int((a == b).sum()) for a, b in zip(got, want))
+    n_all = sum(a.size for a in got)
+    max_diff = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                   for a, b in zip(got, want))
+    check(n_eq / n_all >= WIRE_EQ and max_diff <= 1,
+          f"wire: card coefficients {n_eq / n_all:.6f} equal to the CPU's, "
+          f"max {max_diff} levels apart")
+    # The native unpack (the stream's) against the numpy reference.
+    luma, chroma = got[0].shape, got[1].shape
+    sy = dct.packed_plane_bytes(int(np.prod(luma[:-1])), luma[-1],
+                                dct.W_AC_LUMA)
+    su = dct.packed_plane_bytes(int(np.prod(chroma[:-1])), chroma[-1],
+                                dct.W_AC_CHROMA)
+    for lo, hi, shape, w_ac in ((0, sy, luma, dct.W_AC_LUMA),
+                                (sy, sy + su, chroma, dct.W_AC_CHROMA),
+                                (sy + su, sy + 2 * su, chroma,
+                                 dct.W_AC_CHROMA)):
+        check(np.array_equal(
+            wire_native.unpack_plane(card[lo:hi], shape, w_ac),
+            dct._unpack_plane_shift_numpy(card[lo:hi], shape, w_ac)),
+            f"native unpack differs from numpy on {shape}")
+    # Quality: the wire decoded (numpy and the muxer's JPEGs) and the
+    # yuv420 wire, each against the uint8 frames.
+    ref = frames_u8[:n, :, :, ::-1]  # BGR
+    decoded = yuv420_to_bgr(*renderer._unpack_wire(card, n, h, w))
+    t0 = time.perf_counter()
+    jpegs = wire_native.to_jpegs(*got, h, w, quality=cfg.wire_quality)
+    jpeg_ms = {"dct": (time.perf_counter() - t0) / n * 1e3}
+    from_jpegs = np.stack([
+        cv2.imdecode(np.frombuffer(j, np.uint8), cv2.IMREAD_COLOR)
+        for j in jpegs])
+    psnr_dct, psnr_jpeg = psnr(decoded, ref), psnr(from_jpegs, ref)
+    # The muxer's JPEGs show the picture the wire decodes to.
+    psnr_jpeg_vs_decode = psnr(from_jpegs, decoded)
+    yuv_cfg = dataclasses.replace(cfg, wire_format="yuv420")
+    yuv_renderer = dataclasses.replace(renderer, config=yuv_cfg)
+    yuv = yuv_renderer._encode_wire(x.cuda()).cpu().numpy()
+    planes = yuv_renderer._split_wire(yuv, n, h, w)
+    psnr_yuv = psnr(yuv420_to_bgr(*planes), ref)
+    t0 = time.perf_counter()  # the yuv420 worker's encode, as it runs it
+    yuv_jpegs = [_encode_jpeg(b, 95) for b in yuv420_to_bgr(*planes)]
+    jpeg_ms["yuv420"] = (time.perf_counter() - t0) / n * 1e3
+    # The last step of the mux tail: the AVI of a clip's JPEGs (the slice's
+    # N_FRAMES, these 64 repeated) with its audio.
+    avi_s = {}
+    pcm = np.zeros(N_FRAMES * 16000 // 25, "<i2")
+    with tempfile.TemporaryDirectory() as tmp:
+        for wire, js in (("dct", jpegs), ("yuv420", yuv_jpegs)):
+            t0 = time.perf_counter()
+            _assemble_avi(js * (N_FRAMES // n), pcm,
+                          os.path.join(tmp, "a.avi"), 25.0, 16000, w, h)
+            avi_s[wire] = time.perf_counter() - t0
+    check(psnr_jpeg_vs_decode > 30.0,
+          f"JPEGs {psnr_jpeg_vs_decode} dB from the wire's decode")
+    # The slice under each wire, in turns.
+    runs = {"dct": [], "yuv420": []}
+    for wire in ("dct", "yuv420", "yuv420", "dct"):
+        r = renderer if wire == "dct" else yuv_renderer
+        run, wall = run_slice(r, f"wire_{wire}")
+        mp4 = next(f for f in run.files if f.endswith(".mp4"))
+        check(run.num_frames == N_FRAMES == mp4_frame_count(mp4),
+              f"{wire} slice: {run.num_frames} frames, mp4 "
+              f"{mp4_frame_count(mp4)}")
+        st = run.stage_seconds
+        runs[wire].append({"wall_s": round(wall, 3), **{
+            k: round(st[k], 3) for k in ("render", "render_pull", "mux")}})
+    phase("wire", frames=n, hw=f"{w}x{h}", quality=cfg.wire_quality,
+          k_luma=cfg.wire_k_luma, k_chroma=cfg.wire_k_chroma,
+          coeffs_equal_card_cpu=n_eq / n_all, coeffs=n_all,
+          max_level_diff=max_diff, tf32_on_during_card_encode=True,
+          bytes_per_frame_dct=card.size / n,
+          bytes_per_frame_yuv420=yuv.size / n,
+          jpeg_bytes_per_frame=json.dumps({
+              "dct": sum(map(len, jpegs)) / n,
+              "yuv420": sum(map(len, yuv_jpegs)) / n}),
+          jpeg_ms_per_frame=json.dumps(jpeg_ms),
+          avi_s_per_clip=json.dumps(avi_s),
+          psnr_db_dct_decode=psnr_dct, psnr_db_dct_jpeg=psnr_jpeg,
+          psnr_db_yuv420=psnr_yuv, psnr_db_jpeg_vs_decode=psnr_jpeg_vs_decode,
+          slice_runs=json.dumps(runs))
 
 
 def cli_phases(tmp: str, data: str, ckpt: str, renderer,
@@ -1334,18 +1473,20 @@ def main() -> None:
 
     from text2video_tpu_torch import kernels
     from text2video_tpu_torch.frontend import native
+    from text2video_tpu_torch.io import wire_native
 
     # ---- 1. build: the CUDA kernels and, beside them, the frontend's native
-    # library (g++), which the CLI phases use -------------------------------
+    # library and the wire codec (g++), which the CLI and serving phases use
     t0 = time.perf_counter()
     lib_path, log = kernels.build()
     kernels.library()
     kernels_s = time.perf_counter() - t0
     native_lib = native.ensure_built()
+    wire_lib = wire_native.ensure_built()
     phase("build", seconds=round(kernels_s, 3),
           native_seconds=round(time.perf_counter() - t0 - kernels_s, 3),
           lib=os.path.relpath(lib_path), native=os.path.relpath(native_lib),
-          ptxas=json.dumps(ptxas_lines(log)))
+          wire=os.path.relpath(wire_lib), ptxas=json.dumps(ptxas_lines(log)))
 
     from text2video_tpu_torch.ops import fused_pose, fused_resblock
 
@@ -1531,6 +1672,16 @@ def main() -> None:
             - rasterize_batch(*tracks, (512, 384), chunk=8,
                               device=dev).astype(int)).max()
         check(label_diff == 0, f"device labels differ from CPU by {label_diff}")
+        # The 512x384 keypoints on a 64x64 canvas: segments past the sample
+        # budget take the JAX path's INT32_MIN endpoint (ROADMAP C3).
+        small = [rasterize_batch(*tracks, (64, 64), chunk=8, device=d)
+                 for d in ("cpu", dev)]
+        small_diff = np.abs(small[0].astype(int) - small[1].astype(int)).max()
+        check(small_diff == 0 and small[0][:, -1, -1].any(),
+              f"64x64 labels: card differs from CPU by {small_diff}")
+        phase("raster_small", hw="64x64", frames=8,
+              label_diff_vs_cpu=int(small_diff),
+              drawn_share=float((small[1] > 0).mean()))
 
         # The counted run: the default streaming path into the muxer.
         fused_resblock.launches = 0
@@ -1560,6 +1711,15 @@ def main() -> None:
               stage_seconds=json.dumps(run.stage_seconds), files=files,
               label_diff_vs_cpu=int(label_diff),
               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+        def run_slice(r, name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipeline.Text2VideoPipeline(cfg, r).synthesize(
+                ts, name, audio=audio)
+            return out, time.perf_counter() - t0
+
+        wire_phase(renderer, warm.frames, run_slice)
 
     # Where the device time of a frame goes: warm frames under the profiler
     # (which slows the host, so its wall clock is not the rate).

@@ -112,19 +112,25 @@ def test_generator_runs_once_per_bucket_and_sweep(renderers):
     assert batches == [4, 3] * 3
 
 
-def test_decode_mode_jacobi_through_the_render_paths(renderers):
-    """``decode_mode="jacobi"``: ``render_from_device_chunks`` gives
-    ``render_jacobi``'s frames, and ``render_stream_yuv`` the planes of
-    ``rgb_norm_to_yuv420`` on the Jacobi frames, chunk by chunk, cut at
-    ``t``."""
-    _, tr = renderers
-    t, sweeps = 7, 2
+def _jacobi_chunks(t):
     labels = _labels_u8(t, 4)
     full = np.concatenate([labels, np.zeros((1, H, W, 3), np.uint8)])
-    chunks = [torch.from_numpy(full[:BUCKET]), torch.from_numpy(full[BUCKET:])]
+    return labels, [torch.from_numpy(full[:BUCKET]),
+                    torch.from_numpy(full[BUCKET:])]
+
+
+def test_decode_mode_jacobi_through_the_render_paths(renderers):
+    """``decode_mode="jacobi"`` on the ``"yuv420"`` wire:
+    ``render_from_device_chunks`` gives ``render_jacobi``'s frames, and
+    ``render_stream_yuv`` the planes of ``rgb_norm_to_yuv420`` on the Jacobi
+    frames, chunk by chunk, cut at ``t``."""
+    _, tr = renderers
+    t, sweeps = 7, 2
+    labels, chunks = _jacobi_chunks(t)
     jr = Renderer(generator=tr.generator, time_bucket=BUCKET,
                   config=tconfig.RenderConfig(decode_mode="jacobi",
-                                              jacobi_sweeps=sweeps))
+                                              jacobi_sweeps=sweeps,
+                                              wire_format="yuv420"))
     want = tr.render_jacobi(labels, sweeps=sweeps)
     np.testing.assert_array_equal(jr.render_from_device_chunks(chunks, t),
                                   want)
@@ -141,3 +147,38 @@ def test_decode_mode_jacobi_through_the_render_paths(renderers):
     jr.config = tconfig.RenderConfig(decode_mode="jacobi", jacobi_sweeps=1,
                                      max_frames=5)
     assert jr.render_from_device_chunks(chunks, t).shape[0] == 5
+
+
+def test_decode_mode_jacobi_through_the_dct_wire(renderers):
+    """``decode_mode="jacobi"`` on the default ``"dct"`` wire:
+    ``render_stream_coeffs`` gives the Jacobi frames' coefficients
+    (``encode_yuv`` of their float YUV420 planes, packed and unpacked),
+    chunk by chunk, and ``render_stream_yuv`` those decoded."""
+    from text2video_tpu_torch.ops import dct
+    from text2video_tpu_torch.ops.colorspace import rgb_norm_to_yuv420_float
+
+    _, tr = renderers
+    t, sweeps = 7, 2
+    labels, chunks = _jacobi_chunks(t)
+    cfg = tconfig.RenderConfig(decode_mode="jacobi", jacobi_sweeps=sweeps)
+    assert cfg.wire_format == "dct" and cfg.wire_packed
+    jr = Renderer(generator=tr.generator, time_bucket=BUCKET, config=cfg)
+    frames = tr.jacobi_device(
+        torch.from_numpy(labels).float() / 127.5 - 1.0, sweeps)
+    coeffs = list(jr.render_stream_coeffs(chunks, t))
+    planes = list(jr.render_stream_yuv(chunks, t))
+    assert [c[0][0].shape[0] for c in coeffs] == [BUCKET, t - BUCKET]
+    lq, cq = dct.quant_tables(cfg.wire_quality)
+    for i, ((got, hw), yuv) in enumerate(zip(coeffs, planes)):
+        assert hw == (H, W)
+        ref = dct.encode_yuv(
+            *rgb_norm_to_yuv420_float(frames[i * BUCKET: (i + 1) * BUCKET]),
+            quality=cfg.wire_quality, k_luma=cfg.wire_k_luma,
+            k_chroma=cfg.wire_k_chroma)
+        for g, r, w_ac, q, p in zip(
+                got, ref, (dct.W_AC_LUMA, dct.W_AC_CHROMA, dct.W_AC_CHROMA),
+                (lq, cq, cq), yuv):
+            want = dct._unpack_plane_shift_numpy(
+                dct.pack_plane_shift(r, w_ac).numpy(), tuple(r.shape), w_ac)
+            np.testing.assert_array_equal(g, want)
+            np.testing.assert_array_equal(p, dct.decode_plane_np(g, q))

@@ -1,7 +1,9 @@
 """The port imports and runs without JAX and without the JAX package: every
 submodule imports, the plain slice (pose stage -> rasterizer -> renderer ->
 mux) runs at a tiny size, the CLI's ``tts`` turns text into an mp4 on the
-golden data directory with a tiny checkpoint (scan and Jacobi decoding),
+golden data directory with a tiny checkpoint (scan and Jacobi decoding,
+through the default DCT wire: coefficients streamed from the renderer and
+JPEGs assembled from them by the native codec),
 ``train-gan`` takes a step on files written from the golden frames (and an
 augmented one), ``jacobi_quality``, ``eval_gan`` and ``eval_gan_many`` read
 its directory, ``make_synthetic_frames`` draws frames and the bench measures
@@ -32,8 +34,8 @@ SCRIPT = textwrap.dedent(
         text2video_tpu_torch.__path__, "text2video_tpu_torch.")]
     for name in mods:
         importlib.import_module(name)
-    for sub in ("bench", "train.trainer", "train.data", "train.loop",
-                "train.augment",
+    for sub in ("bench", "ops.dct", "io.wire_native", "train.trainer",
+                "train.data", "train.loop", "train.augment",
                 "tools.jacobi_quality", "tools.eval_gan",
                 "tools.eval_gan_many", "tools.make_synthetic_frames",
                 "models.discriminator",
@@ -65,6 +67,12 @@ SCRIPT = textwrap.dedent(
     from text2video_tpu_torch.golden import write_golden_assets
 
     pipeline.PoseStage = port_stage  # the CLI reads the data directory
+    from text2video_tpu_torch.io import wire_native
+
+    assert wire_native.available()
+    to_jpegs, jpeg_chunks = wire_native.to_jpegs, []
+    wire_native.to_jpegs = (  # the muxer's worker calls it by this name
+        lambda *a, **k: jpeg_chunks.append(a[0].shape[0]) or to_jpegs(*a, **k))
     with tempfile.TemporaryDirectory() as tmp:
         data = write_golden_assets(tmp + "/data")
         save_renderer(renderer, tmp + "/ckpt", height=64)
@@ -78,6 +86,9 @@ SCRIPT = textwrap.dedent(
                          tmp + "/jac", "--device", "cpu", "--decode",
                          "jacobi", "--sweeps", "2"]) == 0
         assert os.path.getsize(tmp + "/jac/fadg0/Dotheymake.mp4") > 0
+        # Both runs muxed the wire's coefficients: one call a chunk.
+        assert len(jpeg_chunks) >= 2 and all(jpeg_chunks), jpeg_chunks
+        wire_native.to_jpegs = to_jpegs
 
         from text2video_tpu_torch.golden import write_training_assets
         from text2video_tpu_torch.tools import (

@@ -93,8 +93,9 @@ def test_synthesize_matches_jax(monkeypatch, tmp_path, pose_inputs):
     assert set(out.stage_seconds) == {"pose_synthesis", "rasterize", "render",
                                       "mux"}
 
-    # The streaming branch (YUV420 chunks into StreamingMuxer) on the same
-    # inputs, with the pose stage's fused device op.
+    # The streaming branch (the default DCT wire: coefficients into the
+    # StreamingMuxer's native JPEG assembly) on the same inputs, with the
+    # pose stage's fused device op.
     run = tpipe.Text2VideoPipeline(
         dataclasses.replace(cfg("stream"), stream=True, pose_device="device"),
         renderer=tr,
@@ -103,6 +104,11 @@ def test_synthesize_matches_jax(monkeypatch, tmp_path, pose_inputs):
     assert any(f.endswith(".mp4") for f in run.files)
     assert all(os.path.getsize(f) > 0 for f in run.files)
     assert "render_pull" in run.stage_seconds
+    import cv2
+
+    cap = cv2.VideoCapture(run.files[0])
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == T
+    cap.release()
 
 
 def test_skeleton_passthrough_matches_jax(monkeypatch, tmp_path, pose_inputs):

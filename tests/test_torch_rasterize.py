@@ -41,3 +41,25 @@ def test_rasterize_zero_keypoints_corner_circles():
     assert drawn[:, :6, :6].all() and not drawn[:, 9:, :].any()
     # The right-hand circle (blue, drawn last) overwrites the left (green).
     np.testing.assert_array_equal(out[0, 0, 0], [255, 0, 0])
+
+
+def test_rasterize_small_canvas_matches_jax():
+    """fadg0's keypoints (512x384 coordinates) drawn on a 64x64 canvas:
+    segments longer than the 128-sample budget have no sample n-1. The JAX
+    path's take_along_axis fills that endpoint with INT32_MIN and its int32
+    disk stamp wraps and clips it onto the canvas edges; the port's labels
+    are pixel-equal to that, corners included."""
+    from text2video_tpu.ops.rasterize import rasterize_batch
+
+    table = golden_table()
+    sel = slice(0, 16)
+    args = (table.face[sel], table.pose[sel], table.hands[sel, 0],
+            table.hands[sel, 1])
+    pose = table.pose[sel].reshape(16, 25, 3)
+    span = np.abs(pose[:, 1, :2] - pose[:, 8, :2]).max(axis=-1)
+    assert (span > 128).all()  # the trunk outruns the sample budget
+    ref = rasterize_batch(*args, (64, 64), chunk=16)
+    out = trast.rasterize_batch(*args, (64, 64), chunk=16, device="cpu")
+    assert out.shape == ref.shape == (16, 64, 64, 3)
+    np.testing.assert_array_equal(out, ref)
+    assert out[:, -1, -1].any(axis=-1).all()  # a disk stamped at the edge

@@ -149,11 +149,16 @@ class RenderConfig:
     use_prev_frames: int = 2  # autoregressive context frames
     checkpoint_dir: Optional[str] = None
     dtype: str = "bfloat16"
-    # Decoding strategy and wire settings of the JAX package's renderer.
-    # The port decodes with the exact sequential scan and streams YUV420
-    # whatever these say; they are kept so one config drives both packages.
+    # Decoding strategy: "scan" is the exact sequential recurrence,
+    # "jacobi" ``jacobi_sweeps`` batched whole-timeline sweeps.
     decode_mode: str = "scan"
     jacobi_sweeps: int = 3
+    # Wire format of the streaming paths (render_stream_yuv /
+    # render_stream_coeffs): "dct" sends zigzag-truncated quantized 8x8-DCT
+    # coefficients (ops/dct.py), which the muxer assembles into JPEGs
+    # without decoding them; "yuv420" sends the uint8 planes. The
+    # coefficients are bit-packed with a per-block 2-bit AC shift when
+    # wire_packed (ops/dct.py::pack_plane_shift).
     wire_format: str = "dct"
     wire_quality: int = 75
     wire_k_luma: int = 12
@@ -172,8 +177,8 @@ class PipelineConfig:
     render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
     # Device batch size for rasterization / GAN inference frame chunks.
     frame_chunk: int = 64
-    # Stream frames off device as YUV420 chunks muxed incrementally on a
-    # worker thread (overlaps encode with compute). Falls back to the
+    # Stream frames off device chunk by chunk (in RenderConfig.wire_format),
+    # muxed incrementally on a worker thread (overlaps encode with compute). Falls back to the
     # materialized-RGB path when arrays are requested.
     stream: bool = True
     # Where the pose stage's smoothing runs: "host" is the bit-exact float64

@@ -1,5 +1,5 @@
 """Frame/audio muxing: frames -> video file with a synchronized track
-(counterpart of ``text2video_tpu/io/video.py`` without the DCT wire).
+(counterpart of ``text2video_tpu/io/video.py``).
 
 Replaces the reference's L7 muxer (reference:
 *phoneme_data/VidTIMIT/fadg0/image2video_real.py — cv2.VideoWriter MP4V at
@@ -14,8 +14,10 @@ from scratch, so no ffmpeg binary is needed:
     Plays in ffmpeg/VLC/browsers; no external tools.
   * :func:`mux` — writes mp4+wav and, when audio is given, the AVI; uses
     the ffmpeg binary for an ``_audio.mp4`` when one is on PATH.
-  * :class:`StreamingMuxer` — the same outputs from YUV420 chunks that
-    arrive while later chunks are still rendering.
+  * :class:`StreamingMuxer` — the same outputs from chunks that arrive
+    while later chunks are still rendering: YUV420 planes (cv2 JPEG encode)
+    or the DCT wire's coefficients (JPEGs assembled from them by the native
+    codec, ``io/wire_native.py``; no pixels on the host).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import cv2
 import numpy as np
 
 from text2video_tpu_torch.frontend.audio import save_wav
+from text2video_tpu_torch.io import wire_native
 from text2video_tpu_torch.io.mp4 import Mp4Writer
 
 
@@ -248,10 +251,11 @@ def yuv420_to_bgr(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
 
 
 class StreamingMuxer:
-    """Incremental mux: frames arrive per chunk (as YUV420 planes straight
-    off the device) while the renderer is still computing later chunks;
-    a worker thread converts + encodes them off the transfer-critical
-    path. ``close()`` finalizes the same set of outputs as :func:`mux`.
+    """Incremental mux: frames arrive per chunk (as YUV420 planes or DCT
+    wire coefficients straight off the device) while the renderer is still
+    computing later chunks; a worker thread encodes them off the
+    transfer-critical path. ``close()`` finalizes the same set of outputs as
+    :func:`mux`.
 
     This is what makes end-to-end latency max(compute, transfer, encode)
     instead of their sum — the reference's muxer only starts after every
@@ -267,6 +271,7 @@ class StreamingMuxer:
         sample_rate: int = 16000,
         audio: Optional[np.ndarray] = None,
         jpeg_quality: int = 95,
+        wire_quality: int = 80,
     ):
         import queue
         import threading
@@ -277,6 +282,7 @@ class StreamingMuxer:
         self.wh = (width, height)
         self.audio = audio
         self.jpeg_quality = jpeg_quality
+        self.wire_quality = wire_quality
         self.has_audio = audio is not None and len(audio) > 0
         self.mp4 = out_base + ".mp4"
         self.writer = Mp4Writer(self.mp4, width, height, fps)
@@ -293,17 +299,35 @@ class StreamingMuxer:
             if item is None:
                 return
             try:
-                for bgr in yuv420_to_bgr(*item):
-                    jpeg = _encode_jpeg(bgr, self.jpeg_quality)
+                kind, a, b, c = item
+                if kind == "yuv":
+                    jpegs = [_encode_jpeg(bgr, self.jpeg_quality)
+                             for bgr in yuv420_to_bgr(a, b, c)]
+                else:  # "dct": the wire's coefficients, native codec
+                    w, h = self.wh
+                    # Entropy coding only: no IDCT, no pixel re-encode.
+                    jpegs = wire_native.to_jpegs(a, b, c, h, w,
+                                                 quality=self.wire_quality)
+                # The MP4 and the AVI stream-copy the same bytes.
+                for jpeg in jpegs:
                     self.writer.add_jpeg(jpeg)
-                    if self.has_audio:
-                        self.jpegs.append(jpeg)
+                if self.has_audio:
+                    self.jpegs.extend(jpegs)
             except BaseException as e:  # surfaced in close()
                 self._err.append(e)
 
     def add_yuv(self, y: np.ndarray, u: np.ndarray, v: np.ndarray) -> None:
         self.n_frames += y.shape[0]
-        self._q.put((y, u, v))
+        self._q.put(("yuv", y, u, v))
+
+    def add_coeffs(
+        self, yq: np.ndarray, uq: np.ndarray, vq: np.ndarray
+    ) -> None:
+        """Enqueue one chunk of the DCT wire's int8 coefficients
+        (``Renderer.render_stream_coeffs``); the worker assembles the JPEGs
+        with the native codec (``io/wire_native.py``)."""
+        self.n_frames += yq.shape[0]
+        self._q.put(("dct", yq, uq, vq))
 
     def close(self) -> List[str]:
         self._q.put(None)

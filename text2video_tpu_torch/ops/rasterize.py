@@ -164,11 +164,22 @@ def _scatter_count(xi, yi, keep, h: int, w: int):
     return grid[:, : h * w].reshape(b, h, w)
 
 
+INT32_MIN = -(2**31)
+
+
+def _wrap_i32(x):
+    """int64 values as the JAX path's int32 arithmetic leaves them: wrapped
+    into [-2^31, 2^31)."""
+    return torch.remainder(x - INT32_MIN, 2**32) + INT32_MIN
+
+
 def _scatter_point_count(xi, yi, keep, offsets, h: int, w: int):
     """Stamp an offset pattern ([K, 2] (dy, dx)) around points [B, N], with
-    canvas clipping."""
-    yy = torch.clamp(yi[..., None] + offsets[:, 0], 0, h - 1)
-    xx = torch.clamp(xi[..., None] + offsets[:, 1], 0, w - 1)
+    canvas clipping. The point + offset sums wrap as int32 sums do: an
+    endpoint filled with INT32_MIN (see :func:`_rasterize_chunk`) lands on
+    the canvas edges exactly as in the JAX path."""
+    yy = torch.clamp(_wrap_i32(yi[..., None] + offsets[:, 0]), 0, h - 1)
+    xx = torch.clamp(_wrap_i32(xi[..., None] + offsets[:, 1]), 0, w - 1)
     kk = keep[..., None].expand(yy.shape)
     b = xi.shape[0]
     return _scatter_count(xx.reshape(b, -1), yy.reshape(b, -1),
@@ -258,10 +269,21 @@ def _rasterize_chunk(face, pose, hand_l, hand_r, width: int, height: int,
         colorb = torch.tensor(color, dtype=torch.float32, device=dev)
         canvas = _blend(canvas, _dilate_box(grid, bw), colorb)
         if has_ep:
-            # Endpoint disks at sample 0 and sample n-1 of each segment.
+            # Endpoint disks at sample 0 and sample n-1 of each segment. A
+            # segment longer than the sample budget (keypoints drawn on a
+            # canvas smaller than their span) has no sample n-1: the JAX
+            # path's take_along_axis fills it with INT32_MIN, and so does
+            # this one.
             last = torch.clamp(n - 1, min=0).to(torch.int64)[..., None]
-            ex = torch.cat([xi[..., :1], torch.gather(xi, -1, last)], dim=-1)
-            ey = torch.cat([yi[..., :1], torch.gather(yi, -1, last)], dim=-1)
+            inside = last < xi.shape[-1]
+            idx = torch.clamp(last, max=xi.shape[-1] - 1)
+
+            def endpoint(v):
+                end = torch.where(inside, torch.gather(v, -1, idx),
+                                  torch.full_like(idx, INT32_MIN))
+                return torch.cat([v[..., :1], end], dim=-1)
+
+            ex, ey = endpoint(xi), endpoint(yi)
             ek = keep.any(dim=-1, keepdim=True).expand(ex.shape)
             cnt = _scatter_point_count(ex.reshape(b, -1), ey.reshape(b, -1),
                                        ek.reshape(b, -1), disk3, h, w)

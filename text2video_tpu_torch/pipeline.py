@@ -12,7 +12,9 @@ The frontend (TTS, alignment) runs on the host; every later stage runs on
 the pipeline's device. Same stage order and StageTimer names as the JAX
 package: ``pose_synthesis`` -> ``rasterize`` -> ``render`` -> ``mux``. With
 a renderer, label chunks stay on the device between the rasterizer and the
-generator; streaming sends YUV420 chunks to a muxer thread as they finish.
+generator; streaming sends each chunk to a muxer thread as it finishes, as
+DCT coefficients that the muxer turns into JPEGs with the native codec
+(``RenderConfig.wire_format="dct"``, the default) or as YUV420 planes.
 The entry points add the frontend's host seconds (``tts``, ``align``) to
 the run's ``stage_seconds``. ``run_audio_batch`` renders many utterances as
 one batch. Not ported: the mesh paths.
@@ -177,12 +179,21 @@ class Text2VideoPipeline:
                 muxer = StreamingMuxer(
                     base, w2, h2, fps=self.profile.fps,
                     sample_rate=sample_rate, audio=audio,
+                    wire_quality=self.renderer.config.wire_quality,
                 )
                 with timer.stage("render"):
-                    for y, u, v in self.renderer.render_stream_yuv(
-                        chunks, t_frames, timer=timer
-                    ):
-                        muxer.add_yuv(y, u, v)
+                    if self.renderer.config.wire_format == "dct":
+                        # The wire's coefficients go straight to the muxer's
+                        # native codec: no pixel planes on the host.
+                        for coeffs, _ in self.renderer.render_stream_coeffs(
+                            chunks, t_frames, timer=timer
+                        ):
+                            muxer.add_coeffs(*coeffs)
+                    else:
+                        for y, u, v in self.renderer.render_stream_yuv(
+                            chunks, t_frames, timer=timer
+                        ):
+                            muxer.add_yuv(y, u, v)
                 with timer.stage("mux"):
                     files = muxer.close()
                 t_frames = muxer.n_frames

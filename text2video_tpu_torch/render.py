@@ -13,10 +13,11 @@ device before they go to the host.
 generator step runs at batch B). ``jacobi_device`` iterates the recurrence
 over the whole timeline instead: each sweep runs the generator on
 ``time_bucket`` frames at once, every frame fed its neighbours of the
-previous sweep. Not ported here: mesh sharding (of the scan's batch and of
-the Jacobi timeline), and the ``"dct"`` wire, which exists for the TPU host
-link; this renderer streams YUV420 whatever ``RenderConfig.wire_format``
-says.
+previous sweep. The streaming paths send each chunk to the host as one flat
+wire tensor in the format of ``RenderConfig.wire_format``: ``"dct"`` (the
+default) bit-packed, truncated, quantized DCT coefficients
+(``ops/dct.py``), ``"yuv420"`` the uint8 planes. Not ported here: mesh
+sharding (of the scan's batch and of the Jacobi timeline).
 """
 
 from __future__ import annotations
@@ -32,7 +33,20 @@ import torch.nn.functional as F
 from text2video_tpu_torch import device as devices
 from text2video_tpu_torch.config import RenderConfig
 from text2video_tpu_torch.models.generator import CompositeGenerator
-from text2video_tpu_torch.ops.colorspace import rgb_norm_to_yuv420
+from text2video_tpu_torch.ops.colorspace import (
+    rgb_norm_to_yuv420,
+    rgb_norm_to_yuv420_float,
+)
+from text2video_tpu_torch.ops.dct import (
+    W_AC_CHROMA,
+    W_AC_LUMA,
+    decode_plane_np,
+    encode_yuv,
+    pack_plane_shift,
+    packed_plane_bytes,
+    quant_tables,
+    unpack_plane_shift_np,
+)
 
 Carry = Tuple[torch.Tensor, torch.Tensor, int]
 
@@ -330,6 +344,98 @@ class Renderer:
             flat = F.pad(flat, (0, 0, 0, 0, 0, 0, 0, pad))
         return [flat[lo: lo + bucket] for lo in range(0, flat.shape[0], bucket)]
 
+    def _pack_coeff_planes(self, yq, uq, vq) -> torch.Tensor:
+        """The three coefficient planes as ONE flat wire tensor: the
+        per-block-shift bit-packed uint8 stream (``config.wire_packed``,
+        ``ops/dct.py::pack_plane_shift``) or the raw int8 coefficients."""
+        if self.config.wire_packed:
+            return torch.cat([pack_plane_shift(yq, W_AC_LUMA),
+                              pack_plane_shift(uq, W_AC_CHROMA),
+                              pack_plane_shift(vq, W_AC_CHROMA)])
+        return torch.cat([yq.reshape(-1), uq.reshape(-1), vq.reshape(-1)])
+
+    def _encode_wire(self, frames: torch.Tensor) -> torch.Tensor:
+        """[n, H', W', 3] frames in [-1, 1] -> one flat wire tensor on their
+        device, in ``config.wire_format``: DCT coefficients of the float
+        YUV420 planes, or the rounded uint8 planes."""
+        cfg = self.config
+        if cfg.wire_format == "dct":
+            yq, uq, vq = encode_yuv(
+                *rgb_norm_to_yuv420_float(frames), quality=cfg.wire_quality,
+                k_luma=cfg.wire_k_luma, k_chroma=cfg.wire_k_chroma)
+            return self._pack_coeff_planes(yq, uq, vq)
+        return torch.cat([p.reshape(-1) for p in rgb_norm_to_yuv420(frames)])
+
+    def _split_wire(self, arr: np.ndarray, n: int, h2: int, w2: int):
+        """One pulled wire array of ``n`` frames -> its three per-plane
+        arrays: int8 coefficients ([n, hb, wb, k], the packed stream unpacked
+        by the native codec) under ``"dct"``, uint8 planes under
+        ``"yuv420"``."""
+        cfg = self.config
+        hc, wc = h2 // 2, w2 // 2
+        if cfg.wire_format != "dct":
+            sy, su = n * h2 * w2, n * hc * wc
+            return (arr[:sy].reshape(n, h2, w2),
+                    arr[sy: sy + su].reshape(n, hc, wc),
+                    arr[sy + su: sy + 2 * su].reshape(n, hc, wc))
+        kl, kc = cfg.wire_k_luma, cfg.wire_k_chroma
+        luma = (n, -(-h2 // 8), -(-w2 // 8), kl)
+        chroma = (n, -(-hc // 8), -(-wc // 8), kc)
+        if cfg.wire_packed:
+            sy = packed_plane_bytes(int(np.prod(luma[:-1])), kl, W_AC_LUMA)
+            su = packed_plane_bytes(int(np.prod(chroma[:-1])), kc,
+                                    W_AC_CHROMA)
+            return (unpack_plane_shift_np(arr[:sy], luma, W_AC_LUMA),
+                    unpack_plane_shift_np(arr[sy: sy + su], chroma,
+                                          W_AC_CHROMA),
+                    unpack_plane_shift_np(arr[sy + su: sy + 2 * su], chroma,
+                                          W_AC_CHROMA))
+        arr = arr.view(np.int8)
+        sy, su = int(np.prod(luma)), int(np.prod(chroma))
+        return (arr[:sy].reshape(luma), arr[sy: sy + su].reshape(chroma),
+                arr[sy + su: sy + 2 * su].reshape(chroma))
+
+    def _unpack_wire(self, arr: np.ndarray, n: int, h2: int, w2: int):
+        """Split + decode one pulled wire array into (y, u, v) uint8 planes,
+        cropped (``encode_plane`` edge-pads planes whose sides are not
+        multiples of 8)."""
+        a, b, c = self._split_wire(arr, n, h2, w2)
+        if self.config.wire_format != "dct":
+            return a, b, c
+        lq, cq = quant_tables(self.config.wire_quality)
+        hc, wc = h2 // 2, w2 // 2
+        return (decode_plane_np(a, lq)[..., :h2, :w2],
+                decode_plane_np(b, cq)[..., :hc, :wc],
+                decode_plane_np(c, cq)[..., :hc, :wc])
+
+    def _stream_wire(self, label_chunks, t: int, timer=None
+                     ) -> Iterator[Tuple[np.ndarray, int, Tuple[int, int]]]:
+        """Shared streaming loop: (host wire array, frames, (H', W')) a
+        chunk. Chunk i's wire tensor is copied to pinned host memory
+        asynchronously while chunk i+1 is rendered, and handed out only after
+        that, so the copy and the consumer overlap the next chunk's compute.
+        ``timer`` (a StageTimer) records the wait in ``render_pull``."""
+        def span(name):
+            return timer.stage(name) if timer else contextlib.nullcontext()
+
+        pending = None
+        for frames in self._frame_chunks(label_chunks, t):
+            copy = (_to_host_async(self._encode_wire(frames)),
+                    frames.shape[0], tuple(frames.shape[1:3]))
+            if pending is not None:
+                yield self._wait_host(pending, span)
+            pending = copy
+        if pending is not None:
+            yield self._wait_host(pending, span)
+
+    @staticmethod
+    def _wait_host(pending, span):
+        (host, event), n, hw = pending
+        with span("render_pull"):
+            if event is not None:
+                event.synchronize()
+        return host.numpy(), n, hw
+
     def render_stream_yuv(
         self, label_chunks, t: int, timer=None
     ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
@@ -337,26 +443,26 @@ class Renderer:
         yields (y [n, H', W'], u [n, H'/2, W'/2], v [n, H'/2, W'/2]) uint8
         arrays, the n summing to ``t``.
 
-        Always the ``"yuv420"`` wire, whatever ``config.wire_format`` says.
-        Chunk i's planes are copied to pinned host memory asynchronously
-        while chunk i+1 is rendered, and handed out only after that, so the
-        copy and the consumer overlap the next chunk's compute. ``timer``
-        (a StageTimer) records the wait in ``render_pull``.
+        The chunk crosses in ``config.wire_format``: under ``"dct"`` the
+        packed coefficients are unpacked and decoded on the host (numpy),
+        under ``"yuv420"`` the planes cross as they are (:meth:`_stream_wire`
+        for the overlap). ``config.decode_mode == "jacobi"`` decodes the
+        whole timeline first and then hands out the same chunks the same
+        way."""
+        for arr, n, (h2, w2) in self._stream_wire(label_chunks, t, timer):
+            yield self._unpack_wire(arr, n, h2, w2)
 
-        ``config.decode_mode == "jacobi"`` decodes the whole timeline first
-        and then hands out the same chunks the same way."""
-        def span(name):
-            return timer.stage(name) if timer else contextlib.nullcontext()
-
-        pending = None
-        for frames in self._frame_chunks(label_chunks, t):
-            planes = rgb_norm_to_yuv420(frames)
-            copies = [_to_host_async(p) for p in planes]
-            if pending is not None:
-                yield self._wait_host(pending, span)
-            pending = copies
-        if pending is not None:
-            yield self._wait_host(pending, span)
+    def render_stream_coeffs(self, label_chunks, t: int, timer=None):
+        """Like :meth:`render_stream_yuv` but yields each chunk's int8
+        coefficient arrays undecoded, with the working size: ((yq [n, hb, wb,
+        kl], uq, vq), (H', W')). For the native codec
+        (``io/wire_native.py``: JPEGs assembled from the coefficients): the
+        host never makes pixel planes. Requires ``config.wire_format ==
+        "dct"``."""
+        if self.config.wire_format != "dct":
+            raise ValueError("render_stream_coeffs requires the dct wire")
+        for arr, n, (h2, w2) in self._stream_wire(label_chunks, t, timer):
+            yield self._split_wire(arr, n, h2, w2), (h2, w2)
 
     def _frame_chunks(self, label_chunks, t: int) -> Iterator[torch.Tensor]:
         """The utterance's frames in [-1, 1], [n, H', W', 3] a label chunk,
@@ -379,14 +485,6 @@ class Renderer:
             labels = chunk.float()[None] / 127.5 - 1.0
             frames, carry = self._scan_chunk(labels, carry, n)
             yield frames[0]
-
-    @staticmethod
-    def _wait_host(copies, span):
-        with span("render_pull"):
-            for _, event in copies:
-                if event is not None:
-                    event.synchronize()
-        return tuple(host.numpy() for host, _ in copies)
 
     def render_many(self, labels_u8: np.ndarray) -> np.ndarray:
         """[B, T, H, W, 3] uint8 host labels -> [B, T, H', W', 3] uint8
