@@ -40,7 +40,19 @@ zoom and crop) made on the card and on the CPU from the same draws,
 ``train-gan --device-data --aug-*``, ``tools.eval_gan`` and
 ``tools.eval_gan_many`` on snapshots of the directory it trained (rendered
 through B1, the weights swapped under one renderer), and
-``tools.make_synthetic_frames`` feeding a dataset.
+``tools.make_synthetic_frames`` feeding a dataset. Last, the mesh: two
+ranks of ``torch.distributed`` share the card over gloo (and, on a host with
+two cards or more, run over NCCL across them), started by the port's
+``parallel.spawn`` with JAX and the JAX package unimportable in each: the
+slice's 256 frames decoded by Jacobi with the timeline split over the ranks
+and four 64-frame clips rendered with the batch split over them (each
+bit-equal to one process's, B1's launches counted on each rank),
+``Text2VideoPipeline(mesh=)`` on the skeleton path (tracks byte-equal to
+``smooth_host``, labels pixel-equal to ``rasterize_batch``, one mp4), and
+``train-gan`` data-parallel over the ranks twice (step 1 against one
+process's, the runs bit-equal, the checkpoint served by one process); and
+``train-gan`` under ``torchrun --nproc-per-node 1`` against a plain process
+(bit-equal checkpoints).
 
 Prints one line per phase (each with ``at_s``, the seconds since the start),
 then a JSON line with each kernel's launches on
@@ -66,6 +78,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import sys
 import tempfile
 import time
@@ -77,6 +90,7 @@ import torch.nn.functional as F
 B1_SHAPES = [  # (shape, kernel scale or None for lecun)
     ((1, 48, 64, 512), None),   # the scan at 512x384 (batch 1)
     ((4, 48, 64, 512), None),   # batch 4 (audio-batch)
+    ((2, 48, 64, 512), None),   # a rank's two rows of a sharded batch of 4
     ((1, 48, 88, 512), None),   # henan at 384x704 (tts-chinese)
     ((64, 48, 64, 512), None),  # a Jacobi sweep's full bucket
     ((32, 48, 64, 512), None),  # the tail bucket of a 224-frame clip
@@ -470,8 +484,8 @@ def cli_phases(tmp: str, data: str, ckpt: str, renderer,
     seen = {}
     render_fn = Renderer.render_many_device
 
-    def recording_render(model, labels_u8):
-        frames = render_fn(model, labels_u8)
+    def recording_render(model, labels_u8, **kw):
+        frames = render_fn(model, labels_u8, **kw)
         seen.update(model=model, labels=labels_u8, frames=frames)
         return frames
 
@@ -807,8 +821,8 @@ class RecordTrainSteps:
         self.loop, self.make_step = loop, loop.make_train_step
         self.records, self.profiles, self.profile_next = [], [], []
 
-        def recording_make(cfg):
-            step = self.make_step(cfg)
+        def recording_make(cfg, **kw):
+            step = self.make_step(cfg, **kw)
 
             def recorded(state, batch):
                 if self.profile_next and self.profile_next.pop():
@@ -893,8 +907,8 @@ def repeat_phase(tmp: str, train_argv) -> None:
     with RecordTrainSteps() as rec:
         make_step = loop.make_train_step
 
-        def first_grads_make(cfg):  # keeps each run's first gradients
-            step = make_step(cfg)
+        def first_grads_make(cfg, **kw):  # keeps each run's first gradients
+            step = make_step(cfg, **kw)
 
             def stepped(state, batch):
                 out = step(state, batch)
@@ -1025,14 +1039,15 @@ def repeat_variants_phase(base, device: str) -> None:
           clip_len=4, steps=2, losses_equal=True, by_config=json.dumps(out))
 
 
-def train_phases(tmp: str, labels: torch.Tensor) -> dict:
+def train_phases(tmp: str, labels: torch.Tensor):
     """``train-gan`` through ``cli.main`` at full width on a data set written
     from the golden frames (steps, resume, the directory as a renderer
     checkpoint, ``jacobi_quality`` on it, three variants of a step), a tiny
     f32 model's gradients on the card against the CPU's, and one step at
     896x512; then :func:`workflow_phases` on the same data set. Returns the
     launches by path (none in training: it runs plain convs, as in the JAX
-    package)."""
+    package) and what :func:`mesh_phases` holds its data-parallel run
+    against: the ``train-gan`` arguments and the first run's steps."""
     from text2video_tpu_torch.checkpoints import (
         STATE_NAME,
         latest_step_dir,
@@ -1063,6 +1078,9 @@ def train_phases(tmp: str, labels: torch.Tensor) -> dict:
             lambda: train(["--device-data"], 3))
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         check(step_n == 3, f"train-gan ended at step {step_n}")
+        train_ref = dict(argv=base_argv + ["--device-data"],
+                         first_metrics=recs[0][1],
+                         step_s=[s for s, _ in recs[1:]])
         # G and every discriminator moved away from the seed's init.
         cfg = trainer.TrainConfig(height=384, width=512)
         init = trainer.create_trainer_state(cfg, seed=0)
@@ -1224,7 +1242,7 @@ def train_phases(tmp: str, labels: torch.Tensor) -> dict:
     by_path = {"train_gan": {"conv3x3_stats": 0, "synthesize_and_smooth": 0}}
     by_path.update(workflow_phases(tmp, images, keypoints, base_argv,
                                    plain_step_s))
-    return by_path
+    return by_path, train_ref
 
 
 def unit_to_u8(x: torch.Tensor) -> torch.Tensor:
@@ -1459,6 +1477,408 @@ def workflow_phases(tmp: str, images: str, keypoints: str, train_argv,
     phase("synthetic_frames", frames=n_frames, hw="896x512",
           seconds_per_frame=seconds / n_frames,
           dataset_frames=ds.num_frames)
+    return by_path
+
+
+# ---- the mesh: ranks of torch.distributed, two on the one card (gloo) -------
+
+MESH_BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "text2video_tpu")
+MESH_WORLD = 2
+MESH_TIMEOUT_S = 600.0  # the spawn's deadline; each collective has 300 s
+MESH_TRAIN_STEPS = 3
+# Step 1 of data-parallel train-gan (two ranks of one clip) against one
+# process (one batch of two clips), bf16 compute: each loss within this share
+# of the single process's.
+MESH_LOSS_RTOL = 1e-2
+
+
+def _sha(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _counted(fn):
+    """(``fn()``, wall seconds, launches by kernel) with the counters at 0."""
+    from text2video_tpu_torch.ops import fused_pose, fused_resblock
+
+    fused_resblock.launches = 0
+    fused_pose.launches = 0
+    out, wall = timed(fn)
+    return out, wall, {"conv3x3_stats": fused_resblock.launches,
+                       "synthesize_and_smooth": fused_pose.launches}
+
+
+def mesh_rank(rank: int, world: int, spec_path: str) -> None:
+    """One rank of :func:`mesh_phases` (started by ``parallel.spawn`` with
+    JAX and the JAX package unimportable): joins the group of
+    ``spec["backend"]`` through a ``file://`` store, runs the phases named in
+    the spec through the port's mesh APIs, each counted, and writes
+    ``rank<r>.json`` (rank 0 also the frames, labels and tracks) to
+    ``spec["out"]``."""
+    from text2video_tpu_torch import cli, pipeline
+    from text2video_tpu_torch.checkpoints import load_renderer
+    from text2video_tpu_torch.config import PipelineConfig, get_profile
+    from text2video_tpu_torch.golden import golden_pose_inputs
+    from text2video_tpu_torch.parallel import make_mesh
+    from text2video_tpu_torch.train import loop, trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    mesh = make_mesh(device="cuda", backend=spec["backend"],
+                     init_method="file://" + spec["store"], rank=rank,
+                     world_size=world)
+    out = spec["out"]
+    res = dict(device=str(mesh.device), backend=mesh.backend)
+    profile = get_profile("fadg0", data_dir=spec["data"])
+    labels = np.load(spec["labels"])  # [256, 384, 512, 3] uint8
+
+    def keep(name, **arrays):
+        if mesh.is_main:
+            np.savez(os.path.join(out, name), **arrays)
+
+    jac = load_renderer(spec["ckpt"], profile, decode_mode="jacobi",
+                        jacobi_sweeps=JACOBI_SWEEPS)
+    # Warm: one bucket a rank, one sweep.
+    jac.render_jacobi_sharded(labels[:CHUNK * world], mesh, sweeps=1)
+    frames, wall, n = _counted(lambda: jac.render_jacobi_sharded(
+        labels, mesh, sweeps=JACOBI_SWEEPS))
+    res["jacobi"] = dict(wall_s=wall, launches=n, sha=_sha(frames))
+    keep("jacobi.npz", frames=frames)
+    del jac, frames
+    torch.cuda.empty_cache()
+
+    scan = load_renderer(spec["ckpt"], profile)
+    rows = labels[:2 * world * CHUNK].reshape(2 * world, CHUNK,
+                                              *labels.shape[1:])
+    scan.render_many(rows[:, :8], mesh=mesh)  # warm: batch 2, 8 steps
+    frames, wall, n = _counted(lambda: scan.render_many(rows, mesh=mesh))
+    res["render_many"] = dict(wall_s=wall, launches=n, sha=_sha(frames))
+    keep("render_many.npz", frames=frames)
+    del scan, frames
+    torch.cuda.empty_cache()
+
+    gprof, pdict, table, ts = golden_pose_inputs(n_frames=N_FRAMES)
+    port_stage = pipeline.PoseStage
+    pipeline.PoseStage = (
+        lambda p, device="cpu": port_stage(p, pdict, table, device))
+    try:
+        pipe = pipeline.Text2VideoPipeline(
+            PipelineConfig(person=gprof, out_dir=spec["pose_out"]),
+            mesh=mesh)
+        run, wall, n = _counted(
+            lambda: pipe.synthesize(ts, "mesh", keep_arrays=True))
+        tracks = pipe.pose_stage.run(ts, mesh=mesh)
+    finally:
+        pipeline.PoseStage = port_stage
+    res["pose_raster"] = dict(
+        wall_s=wall, launches=n, frames=run.num_frames,
+        files=[os.path.basename(f) for f in run.files],
+        stage_seconds=run.stage_seconds, sha=_sha(run.label_maps),
+        tracks_sha=_sha(np.concatenate([tracks.face_smooth,
+                                        tracks.pose_smooth], axis=1)))
+    keep("pose_raster.npz", labels=run.label_maps,
+         face=tracks.face_smooth, pose=tracks.pose_smooth)
+
+    # train-gan through the CLI: the group is up, so it trains over it.
+    records, sync_s = [], []
+    mean, make = trainer.mean_ordered, loop.make_train_step
+
+    def timed_mean(tensors, m):
+        synced, seconds = timed(lambda: mean(tensors, m))
+        sync_s.append(seconds)
+        return synced
+
+    def recording_make(cfg, **kw):
+        step = make(cfg, **kw)
+
+        def recorded(state, batch):
+            (state, metrics), seconds = timed(lambda: step(state, batch))
+            records.append((seconds, {k: float(v)
+                                      for k, v in metrics.items()}))
+            return state, metrics
+
+        return recorded
+
+    trainer.mean_ordered, loop.make_train_step = timed_mean, recording_make
+    runs = {}
+    try:
+        for name in ("dp_a", "dp_b"):
+            del records[:], sync_s[:]
+            (lines, _, n), wall = timed(lambda: run_main(cli.main, spec[
+                "train_argv"] + ["--ckpt", os.path.join(spec["train_out"],
+                                                        name),
+                                 "--steps", str(MESH_TRAIN_STEPS)]))
+            runs[name] = dict(wall_s=wall, launches=n,
+                              step_s=[s for s, _ in records],
+                              sync_s=list(sync_s),
+                              metrics=[m for _, m in records],
+                              printed=lines[-1] if lines else None)
+    finally:
+        trainer.mean_ordered, loop.make_train_step = mean, make
+    res["train"] = runs
+    res["loaded"] = sorted(k for k, v in sys.modules.items() if v is not None
+                           and k.split(".")[0] in MESH_BLOCKED)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def torchrun_phase(tmp: str) -> None:
+    """``train-gan`` under ``torchrun --nproc-per-node 1`` (a mesh of one
+    rank, built from torchrun's environment) and as a plain process, from one
+    seed on one tiny data set: the two checkpoints must be bit-equal."""
+    import subprocess
+
+    from text2video_tpu_torch.checkpoints import STATE_NAME, latest_step_dir
+    from text2video_tpu_torch.golden import write_training_assets
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    images, keypoints = write_training_assets(
+        os.path.join(tmp, "torchrun_data"), n_frames=24, canvas=(128, 96))
+    argv = ["-m", "text2video_tpu_torch.cli", "train-gan", "--images",
+            images, "--keypoints", keypoints, "--width", "128", "--height",
+            "96", "--source-width", "512", "--source-height", "384",
+            "--clip-len", "4", "--base-ch", "8", "--batch-size", "2",
+            "--steps", "2", "--device-data"]
+    env = dict(os.environ, PYTHONPATH=root)
+    procs, states = {}, {}
+    t0 = time.perf_counter()
+    for name, launcher in (  # both at once: each takes ~30 s to start
+            ("plain", []),
+            ("torchrun", ["-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node", "1"])):
+        ckpt = os.path.join(tmp, f"torchrun_{name}")
+        # A session of its own: torchrun's worker goes with it on a kill.
+        procs[name] = (ckpt, subprocess.Popen(
+            [sys.executable, *launcher, *argv, "--ckpt", ckpt], cwd=root,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True))
+    try:
+        for name, (ckpt, proc) in procs.items():
+            _, err = proc.communicate(timeout=300)
+            check(proc.returncode == 0,
+                  f"train-gan ({name}) failed: {err[-2000:]}")
+            states[name] = torch.load(
+                os.path.join(latest_step_dir(ckpt), STATE_NAME),
+                map_location="cpu", weights_only=True)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    diff = state_diff(states["plain"], states["torchrun"])
+    check(states["plain"]["step"] == 2 and diff[0] == 0,
+          f"torchrun's checkpoint differs from the plain run's: {diff}")
+    phase("mesh_torchrun", hw="128x96", base_ch=8, batch=2, clip_len=4,
+          steps=2, tensors_equal=f"{diff[3]}/{diff[3]}", wall_s=wall)
+
+
+def mesh_phases(tmp: str, data: str, ckpt: str, labels: np.ndarray,
+                train_ref: dict, backends=None) -> dict:
+    """The port's mesh on the card: :func:`mesh_rank` in ``MESH_WORLD``
+    ranks over gloo on the one card (NCCL refuses two ranks on one device),
+    and, where the host has two cards or more, over NCCL across them. Each
+    rank's results are held against one process's in this call:
+    ``[mesh_jacobi]`` (the slice's 256 frames in 3 sweeps, bit-equal to
+    ``render_jacobi``), ``[mesh_render_many]`` (four 64-frame clips, each
+    rank's two rows bit-equal to ``render_many`` of those rows),
+    ``[mesh_pose_raster]`` (``Text2VideoPipeline(mesh=)``: tracks byte-equal
+    to ``smooth_host``, labels pixel-equal to ``rasterize_batch``, the mp4
+    written once), ``[mesh_train]`` (``train-gan`` over the ranks twice:
+    step 1 against the single process's, the two runs bit-equal, rank 0's
+    checkpoint served by one process). ``backends``: [(backend, ranks)],
+    by default as above. Returns B1's launches by path and rank."""
+    from text2video_tpu_torch.checkpoints import (
+        STATE_NAME,
+        latest_step_dir,
+        load_renderer,
+    )
+    from text2video_tpu_torch.config import get_profile
+    from text2video_tpu_torch.golden import golden_pose_inputs
+    from text2video_tpu_torch.ops.interp import (
+        plan_pose_track,
+        synthesize_host,
+    )
+    from text2video_tpu_torch.ops.rasterize import rasterize_batch
+    from text2video_tpu_torch.ops.smooth import smooth_host
+    from text2video_tpu_torch.parallel import spawn
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    root = os.path.join(tmp, "mesh")
+    os.makedirs(root)
+    labels_path = os.path.join(root, "labels.npy")
+    np.save(labels_path, labels)
+    profile = get_profile("fadg0", data_dir=data)
+
+    # One process's results on the same inputs.
+    jac = load_renderer(ckpt, profile, decode_mode="jacobi",
+                        jacobi_sweeps=JACOBI_SWEEPS)
+    jac.render_jacobi(labels[:CHUNK], sweeps=1)
+    jac_ref, jac_s = timed(lambda: jac.render_jacobi(labels,
+                                                     sweeps=JACOBI_SWEEPS))
+    del jac
+    scan = load_renderer(ckpt, profile)
+    rows = labels[:2 * MESH_WORLD * CHUNK].reshape(2 * MESH_WORLD, CHUNK,
+                                                   *labels.shape[1:])
+    many_ref, many_s = timed(lambda: np.concatenate(
+        [scan.render_many(rows[i: i + 2]) for i in range(0, len(rows), 2)]))
+    del scan
+    torch.cuda.empty_cache()
+    gprof, pdict, table, ts = golden_pose_inputs(n_frames=N_FRAMES)
+    plan = plan_pose_track(ts, pdict, table, gprof)
+    face_s, pose_s = smooth_host(*synthesize_host(plan, table),
+                                 gprof.smooth_width)
+    hands = table.hands[plan.carrier]
+    raster_ref = rasterize_batch(face_s, pose_s, hands[:, 0], hands[:, 1],
+                                 tuple(gprof.canvas), chunk=CHUNK,
+                                 device="cuda")
+    single_step_s = float(np.median(train_ref["step_s"]))
+
+    by_path = {}
+    if backends is None:
+        backends = [("gloo", MESH_WORLD)]
+        if torch.cuda.device_count() >= MESH_WORLD:
+            backends.append(("nccl", MESH_WORLD))
+    for backend, world in backends:
+        out = os.path.join(root, backend)
+        os.makedirs(out)
+        spec = dict(backend=backend, store=os.path.join(out, "store"),
+                    out=out, labels=labels_path, ckpt=ckpt, data=data,
+                    pose_out=os.path.join(out, "pose"),
+                    train_out=os.path.join(out, "train"),
+                    train_argv=train_ref["argv"])
+        spec_path = os.path.join(out, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        _, spawn_s = timed(lambda: spawn(
+            "chip_smoke:mesh_rank", world, (spec_path,),
+            timeout_s=MESH_TIMEOUT_S, block=MESH_BLOCKED))
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        check(all(not rk["loaded"] for rk in ranks),
+              f"a rank imported JAX or the JAX package: "
+              f"{[rk['loaded'] for rk in ranks]}")
+        from text2video_tpu_torch.bench import device_info
+
+        cards = sorted({rk["device"] for rk in ranks})
+        common = dict(backend=backend, world=world,
+                      devices=[rk["device"] for rk in ranks],
+                      cards=json.dumps([
+                          "{name}, {power_limit}".format(
+                              **device_info(torch.device(c))) for c in cards]))
+
+        def held(name, ref):
+            """(rank 0's array, max |diff| against ``ref``, first frame that
+            differs, whether every rank got the same bits)."""
+            got = np.load(os.path.join(out, name + ".npz"))
+            key = "frames" if "frames" in got else "labels"
+            arr = got[key]
+            check(arr.shape == ref.shape, f"{name}: {arr.shape} vs "
+                  f"{ref.shape}")
+            agree = len({rk[name]["sha"] for rk in ranks}) == 1
+            check(agree, f"{name}: the ranks' results differ")
+            return (arr, int(np.abs(arr.astype(int) - ref.astype(int)).max()),
+                    agree)
+
+        launches = [rk["jacobi"]["launches"]["conv3x3_stats"] for rk in ranks]
+        arr, diff, agree = held("jacobi", jac_ref)
+        n_buckets = -(-labels.shape[0] // CHUNK) // world
+        check(launches == [18 * n_buckets * JACOBI_SWEEPS] * world,
+              f"mesh_jacobi: B1 launches by rank {launches}")
+        check(diff == 0, f"mesh_jacobi: frames differ from one process's "
+              f"by up to {diff}, first at frame {first_diff(arr, jac_ref)}")
+        walls = [rk["jacobi"]["wall_s"] for rk in ranks]
+        phase("mesh_jacobi", **common, frames=len(jac_ref),
+              sweeps=JACOBI_SWEEPS, bucket=CHUNK, bit_equal=diff == 0,
+              ranks_agree=agree, wall_s_by_rank=walls,
+              single_process_wall_s=jac_s, b1_launches_by_rank=launches)
+        for r, n in enumerate(launches):
+            by_path[f"mesh_jacobi_{backend}_rank{r}"] = ranks[r]["jacobi"][
+                "launches"]
+
+        launches = [rk["render_many"]["launches"]["conv3x3_stats"]
+                    for rk in ranks]
+        arr, diff, agree = held("render_many", many_ref)
+        check(launches == [18 * CHUNK] * world,
+              f"mesh_render_many: B1 launches by rank {launches}")
+        check(diff == 0, f"mesh_render_many: rows differ from one process's "
+              f"render_many by up to {diff}")
+        phase("mesh_render_many", **common, rows=len(rows), frames=CHUNK,
+              rows_a_rank=len(rows) // world, bit_equal=diff == 0,
+              ranks_agree=agree,
+              wall_s_by_rank=[rk["render_many"]["wall_s"] for rk in ranks],
+              single_process_wall_s=many_s, b1_launches_by_rank=launches)
+        for r in range(world):
+            by_path[f"mesh_render_many_{backend}_rank{r}"] = ranks[r][
+                "render_many"]["launches"]
+
+        pr = [rk["pose_raster"] for rk in ranks]
+        got = np.load(os.path.join(out, "pose_raster.npz"))
+        tracks_equal = (np.array_equal(got["face"], face_s)
+                        and np.array_equal(got["pose"], pose_s))
+        labels_equal = np.array_equal(got["labels"], raster_ref)
+        mp4s = [f for f in os.listdir(os.path.join(out, "pose", "fadg0"))]
+        check(tracks_equal and len({p["tracks_sha"] for p in pr}) == 1,
+              "mesh_pose_raster: smoothed tracks differ from smooth_host's")
+        check(labels_equal and len({p["sha"] for p in pr}) == 1,
+              "mesh_pose_raster: labels differ from rasterize_batch's")
+        check([p["files"] for p in pr] == [["mesh.mp4"]] + [[]] * (world - 1)
+              and mp4s == ["mesh.mp4"] and mp4_frame_count(
+                  os.path.join(out, "pose", "fadg0", "mesh.mp4")) == N_FRAMES,
+              f"mesh_pose_raster: files {[p['files'] for p in pr]}, {mp4s}")
+        check(all(p["launches"] == {"conv3x3_stats": 0,
+                                    "synthesize_and_smooth": 0} for p in pr),
+              f"mesh_pose_raster launched {[p['launches'] for p in pr]}")
+        phase("mesh_pose_raster", **common, frames=N_FRAMES, hw="512x384",
+              tracks_byte_equal=tracks_equal, labels_pixel_equal=labels_equal,
+              files_by_rank=[p["files"] for p in pr],
+              wall_s_by_rank=[p["wall_s"] for p in pr],
+              stage_seconds_rank0=json.dumps(pr[0]["stage_seconds"]),
+              b1_b2_launches=0)
+
+        tr = [rk["train"] for rk in ranks]
+        for run in ("dp_a", "dp_b"):
+            check(all(t[run]["metrics"] == tr[0][run]["metrics"]
+                      for t in tr), f"mesh_train {run}: ranks' losses differ")
+            check(all(t[run]["launches"]["conv3x3_stats"] == 0 for t in tr),
+                  f"mesh_train {run}: an inference kernel launched")
+        check(tr[0]["dp_a"]["metrics"] == tr[0]["dp_b"]["metrics"],
+              "mesh_train: two runs' losses differ")
+        states = [torch.load(os.path.join(latest_step_dir(
+            os.path.join(out, "train", run)), STATE_NAME),
+            map_location="cpu", weights_only=True) for run in ("dp_a",
+                                                               "dp_b")]
+        same = state_diff(*states)
+        check(states[0]["step"] == MESH_TRAIN_STEPS and same[0] == 0,
+              f"mesh_train: the runs' states differ: {same}")
+        first = tr[0]["dp_a"]["metrics"][0]
+        ref = train_ref["first_metrics"]
+        rel = {k: abs(first[k] - ref[k]) / max(abs(ref[k]), 1e-6)
+               for k in ref}
+        check(max(rel.values()) <= MESH_LOSS_RTOL,
+              f"mesh_train: step 1 against one process, relative: {rel}")
+        served = load_renderer(os.path.join(out, "train", "dp_a"), profile)
+        frames, _, n = _counted(lambda: served.render_from_device_chunks(
+            [torch.from_numpy(labels[:8]).cuda()], 8))
+        check(n["conv3x3_stats"] == 18 * 8 and frames.std() > 0,
+              f"mesh_train: the DP checkpoint served {n}")
+        del served
+        step_s = [t["dp_b"]["step_s"][1:] for t in tr]
+        sync_s = [t["dp_b"]["sync_s"][1:] for t in tr]
+        phase("mesh_train", **common, hw="512x384", batch=2, clip_len=8,
+              steps=MESH_TRAIN_STEPS, runs_bit_equal=True,
+              tensors_equal=f"{same[3]}/{same[3]}",
+              step1_rel_diff_vs_single=json.dumps(rel),
+              step1_tol=MESH_LOSS_RTOL, step_s_by_rank=step_s,
+              sync_s_by_rank=sync_s,
+              sync_share=float(np.sum(sync_s) / np.sum(step_s)),
+              single_process_step_s=single_step_s,
+              ckpt_served_b1_launches=n["conv3x3_stats"],
+              spawn_wall_s=spawn_s)
     return by_path
 
 
@@ -1749,7 +2169,12 @@ def main() -> None:
                                      renderer, labels[0]))
         del renderer
         torch.cuda.empty_cache()
-        by_path.update(train_phases(tmp, labels[0]))
+        train_paths, train_ref = train_phases(tmp, labels[0])
+        by_path.update(train_paths)
+        # ---- 9. the mesh: data-parallel ranks of torch.distributed ----------
+        by_path.update(mesh_phases(tmp, data, ckpt, warm.label_maps,
+                                   train_ref))
+        torchrun_phase(tmp)
     check(all(by_path[p]["conv3x3_stats"] > 0 for p in by_path
               if not p.startswith("train_gan")),
           f"B1 was not launched on a serving path: {by_path}")
@@ -1757,7 +2182,7 @@ def main() -> None:
         "jax", "jaxlib", "flax", "optax", "orbax", "text2video_tpu"))
     check(not loaded, f"JAX or the JAX package was imported: {loaded}")
 
-    # ---- 9. the card, 10. the result ----------------------------------------
+    # ---- 10. the card, 11. the result ----------------------------------------
     phase("total", seconds=time.perf_counter() - START)
     print(json.dumps({"kernels": [
         {"name": "conv3x3_stats", "route": "cuda",
@@ -1788,5 +2213,63 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def mesh_only() -> None:
+    """``python3 chip_smoke.py --mesh``: the mesh phases alone, with what
+    they are held against made as :func:`main` makes it (the serving
+    renderer's checkpoint, the slice's 256 golden label maps, one process's
+    first ``train-gan`` steps at full width), and ``[mesh_torchrun]``. On a
+    host with several cards the phases also run over NCCL across two of
+    them (``python3 chip_smoke.py --mesh`` on a four-card host)."""
+    from text2video_tpu_torch import kernels
+    from text2video_tpu_torch.checkpoints import save_renderer
+    from text2video_tpu_torch.golden import (
+        golden_pose_inputs,
+        write_golden_assets,
+        write_training_assets,
+    )
+    from text2video_tpu_torch.ops.interp import (
+        plan_pose_track,
+        synthesize_host,
+    )
+    from text2video_tpu_torch.ops.rasterize import rasterize_batch
+    from text2video_tpu_torch.ops.smooth import smooth_host
+    from text2video_tpu_torch.render import Renderer
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.build()
+    kernels.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_golden_assets(os.path.join(tmp, "data"))
+        ckpt = os.path.join(tmp, "ckpt")
+        save_renderer(Renderer.create(seed=0), ckpt, height=384)
+        prof, pdict, table, ts = golden_pose_inputs(n_frames=N_FRAMES)
+        plan = plan_pose_track(ts, pdict, table, prof)
+        face, pose = smooth_host(*synthesize_host(plan, table),
+                                 prof.smooth_width)
+        hands = table.hands[plan.carrier]
+        labels = rasterize_batch(face, pose, hands[:, 0], hands[:, 1],
+                                 tuple(prof.canvas), chunk=CHUNK,
+                                 device="cuda")
+        images, keypoints = write_training_assets(
+            os.path.join(tmp, "train"), n_frames=24, canvas=(512, 384))
+        argv = ["train-gan", "--images", images, "--keypoints", keypoints,
+                "--width", "512", "--height", "384", "--clip-len", "8",
+                "--batch-size", "2", "--device-data"]
+        gan = os.path.join(tmp, "gan")
+        with RecordTrainSteps() as rec:
+            _, recs, _ = run_train(rec, argv + ["--ckpt", gan], 3, gan)
+        mesh_phases(tmp, data, ckpt, labels, dict(
+            argv=argv, first_metrics=recs[0][1],
+            step_s=[s for s, _ in recs[1:]]))
+        torchrun_phase(tmp)
+    phase("total", seconds=time.perf_counter() - START)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--mesh"]:
+        mesh_only()
+    else:
+        main()

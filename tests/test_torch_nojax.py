@@ -8,7 +8,10 @@ JPEGs assembled from them by the native codec),
 augmented one), ``jacobi_quality``, ``eval_gan`` and ``eval_gan_many`` read
 its directory, ``make_synthetic_frames`` draws frames and the bench measures
 the scan and Jacobi decoding, in a child process where importing
-jax, flax, optax, orbax or text2video_tpu fails."""
+jax, flax, optax, orbax or text2video_tpu fails. The mesh paths (Jacobi over
+the timeline, ``render_many``, the sharded smoother and rasterizer) run the
+same way in two gloo ranks that the child spawns, with the same modules
+blocked in each rank."""
 
 import os
 import subprocess
@@ -154,3 +157,39 @@ def test_port_imports_and_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX_OK" in proc.stdout
+
+
+MESH_SCRIPT = textwrap.dedent(
+    """
+    import json, os, sys, tempfile
+    from torch_mesh_workers import BLOCKED
+    for name in BLOCKED:
+        sys.modules[name] = None
+
+    from text2video_tpu_torch.parallel import spawn
+
+    if __name__ == "__main__":
+        with tempfile.TemporaryDirectory() as tmp:
+            spawn("torch_mesh_workers:nojax_ops", 2,
+                  (tmp + "/store", tmp, tmp), timeout_s=120, block=BLOCKED)
+            outs = [json.load(open(f"{tmp}/nojax_rank{r}.json"))
+                    for r in range(2)]
+        assert all(o["loaded"] == [] and all(o["blocked"]) for o in outs), outs
+        assert outs[0]["sums"] == outs[1]["sums"], outs
+        loaded = [k for k, v in sys.modules.items() if v is not None
+                  and k.split(".")[0] in BLOCKED]
+        assert not loaded, loaded
+        print("NOJAX_MESH_OK")
+    """
+)
+
+
+def test_mesh_paths_run_without_jax_in_every_rank():
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "tests")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", MESH_SCRIPT],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=180,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_MESH_OK" in proc.stdout

@@ -9,7 +9,9 @@ smoother, the muxers, the stage timer) are its own copies.
 It covers text or audio in, video out (``cli.py``): the host frontend
 (TTS, forced alignment, pinyin) -> pose stage -> rasterizer ->
 autoregressive ``CompositeGenerator``, one utterance or a batch -> uint8 /
-YUV420 frames -> host -> muxer.
+YUV420 frames -> host -> muxer. Over ``torch.distributed`` (``parallel/``),
+the JAX package's mesh "data" axis spreads a batch, a timeline or training
+over one process a card.
 """
 
 __version__ = "0.3.0"

@@ -9,9 +9,12 @@ plus ``audio-batch`` (many utterances as one generator batch), ``train-gan``,
 the frontend tools ``train-aligner``, ``train-aligner-zh``, ``build-dict``
 and ``build-dict-zh``, and ``bench`` (``bench.py`` of this package, the
 counterpart of the root ``bench.py``). The commands take the JAX CLI's
-arguments (``train-gan`` without ``--n-model``: one device trains), plus
-``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions),
-and ``audio-batch`` also takes ``--pose-device``.
+arguments, plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
+plain versions), and ``audio-batch`` also takes ``--pose-device``.
+``train-gan`` is data-parallel when several processes run it
+(``torchrun --nproc-per-node N -m text2video_tpu_torch.cli train-gan ...``:
+the mesh comes from torchrun's environment, each rank on its own card); its
+``--n-model`` above 1 raises (the mesh's model axis is not ported).
 ``--gan-checkpoint`` takes the port's checkpoint formats
 (``checkpoints.py``): a renderer checkpoint or ``train-gan``'s directory.
 
@@ -333,10 +336,15 @@ def cmd_train_aligner_zh(args) -> int:
 
 def cmd_train_gan(args) -> int:
     import torch
+    import torch.distributed as dist
 
+    from text2video_tpu_torch.parallel.mesh import local_device
     from text2video_tpu_torch.train.data import PoseClipDataset
-    from text2video_tpu_torch.train.loop import train_gan
+    from text2video_tpu_torch.train.loop import distributed, train_gan
     from text2video_tpu_torch.train.trainer import TrainConfig
+
+    # One of several processes: this rank's card, for the data set too.
+    device = local_device(args.device) if distributed() else args.device
 
     # VGG policy: real weights turn the perceptual term on; otherwise it is
     # off unless --random-vgg opts into the random-filter prior.
@@ -379,7 +387,7 @@ def cmd_train_gan(args) -> int:
         max_frames=args.max_frames,
         split=args.split,
         holdout_fraction=args.holdout_fraction,
-        device=args.device,
+        device=device,
     )
     state = train_gan(
         dataset,
@@ -387,13 +395,17 @@ def cmd_train_gan(args) -> int:
         steps=args.steps,
         batch_size=args.batch_size,
         ckpt_dir=args.ckpt,
+        n_model=args.n_model,
         device_data=args.device_data,
         sample_every=args.sample_every,
         stall_timeout=args.stall_timeout,
         vgg_params=vgg_params,
-        device=args.device,
+        device=device,
     )
-    print(json.dumps({"steps": int(state.step), "ckpt": args.ckpt}))
+    # A rank outside the mesh returns None; only rank 0 reports.
+    if state is not None and (not dist.is_initialized()
+                              or dist.get_rank() == 0):
+        print(json.dumps({"steps": int(state.step), "ckpt": args.ckpt}))
     return 0
 
 
@@ -649,6 +661,9 @@ def main(argv=None) -> int:
     p.add_argument("--max-frames", type=int, default=None,
                    help="cap total paired frames (device-data datasets "
                    "must fit the device's memory)")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="model-axis size of the mesh; only 1 is ported "
+                   "(the data axis spans the processes torchrun starts)")
     _add_device(p)
     p.set_defaults(fn=cmd_train_gan)
 

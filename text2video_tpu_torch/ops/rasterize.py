@@ -7,6 +7,7 @@ Every drawn primitive is a 2-point segment sampled like the reference's
 all-ones conv, and blended into the canvas by the per-pixel count rule; the
 hand-centre circles overwrite last. Counts and blends are integer-valued in
 f32, so the result equals the JAX device path exactly.
+``rasterize_batch_sharded`` splits an utterance's frames over a mesh.
 
 The topology constants below are copied from the JAX module, which cannot
 be imported without JAX.
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from text2video_tpu_torch import device as devices
+from text2video_tpu_torch.parallel.mesh import gather_rows, shard_rows
 
 POSE_EDGES: List[Tuple[int, int]] = [
     (0, 1), (1, 8),          # trunk
@@ -334,3 +336,25 @@ def rasterize_batch(face, pose, hand_l, hand_r, size: Tuple[int, int],
     if not to_host:
         return outs
     return np.concatenate([o.cpu().numpy() for o in outs], axis=0)[:t_len]
+
+
+def rasterize_batch_sharded(face, pose, hand_l, hand_r, size: Tuple[int, int],
+                            mesh) -> np.ndarray:
+    """Frame-parallel rasterization over the mesh's "data" axis: the
+    utterance's frames, padded to a multiple of the axis, split into one
+    block a rank; each rank draws its block on its device with
+    ``_rasterize_chunk`` and the blocks are gathered. Frames are
+    independent, so no halo is needed and the labels are pixel-equal to
+    :func:`rasterize_batch`'s. Every rank calls with the same tracks and gets
+    the whole [T, h, w, 3] uint8 numpy result."""
+    w, h = size
+    t_len = face.shape[0]
+
+    def block(x):
+        x = torch.as_tensor(np.asarray(x, dtype=np.float32))
+        return shard_rows(x, mesh).to(mesh.device)
+
+    img = _rasterize_chunk(*map(block, (face, pose, hand_l, hand_r)),
+                           width=w, height=h,
+                           n_samples=_round_up(max(w, h), 128))
+    return gather_rows(img, mesh, t_len).cpu().numpy()

@@ -17,7 +17,15 @@ DCT coefficients that the muxer turns into JPEGs with the native codec
 (``RenderConfig.wire_format="dct"``, the default) or as YUV420 planes.
 The entry points add the frontend's host seconds (``tts``, ``align``) to
 the run's ``stage_seconds``. ``run_audio_batch`` renders many utterances as
-one batch. Not ported: the mesh paths.
+one batch.
+
+With a mesh (``parallel.make_mesh``; every rank builds the pipeline and calls
+it with the same arguments), the pose stage smooths one utterance with its
+time axis sharded (``smooth_recursive_sharded``, byte-equal to the host
+path), the skeleton path rasterizes it frame-parallel
+(``rasterize_batch_sharded``), and ``run_audio_batch`` shards the utterance
+batch of the render (``Renderer.render_many_device``). The frontend runs on
+every rank (cheap and deterministic); only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -55,7 +63,10 @@ from text2video_tpu_torch.frontend.timestamps import (
 )
 from text2video_tpu_torch.frontend.tts import FormantTTS, TTSBackend
 from text2video_tpu_torch.io.video import StreamingMuxer, mux
-from text2video_tpu_torch.ops.rasterize import rasterize_batch
+from text2video_tpu_torch.ops.rasterize import (
+    rasterize_batch,
+    rasterize_batch_sharded,
+)
 from text2video_tpu_torch.pose_stage import PoseStage
 from text2video_tpu_torch.render import Renderer
 from text2video_tpu_torch.utils.logging import get_logger
@@ -103,17 +114,26 @@ class Text2VideoPipeline:
         asr: Optional[AsrBackend] = None,
         mandarin_aligner: Optional[MandarinAligner] = None,
         device=None,
+        mesh=None,
     ):
         """Every stage after the frontend runs on the renderer's device;
-        without a renderer, on ``device`` (the card unless the caller names
-        another). A zh profile without an ``asr`` or ``mandarin_aligner``
-        loads the packaged Mandarin model, so forced alignment, not the
-        energy segmenter, times the Chinese path by default."""
+        without a renderer, on the mesh's device or ``device`` (the card
+        unless the caller names another). A zh profile without an ``asr`` or
+        ``mandarin_aligner`` loads the packaged Mandarin model, so forced
+        alignment, not the energy segmenter, times the Chinese path by
+        default. ``mesh``: see the module's docstring; the render of one
+        utterance is not sharded (its scan is sequential over time), as in
+        the JAX package."""
         self.config = config
         self.profile: PersonProfile = config.person
         self.renderer = renderer
-        self.device = (renderer.device if renderer is not None
-                       else devices.resolve(device))
+        self.mesh = mesh
+        if renderer is not None:
+            self.device = renderer.device
+        elif mesh is not None:
+            self.device = mesh.device
+        else:
+            self.device = devices.resolve(device)
         self.pose_stage = PoseStage(self.profile, device=self.device)
         self.aligner = aligner
         self.tts = tts
@@ -122,6 +142,12 @@ class Text2VideoPipeline:
                 and self.profile.language == "zh"):
             mandarin_aligner = _default_mandarin_aligner(self.profile.name)
         self.mandarin_aligner = mandarin_aligner
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes the run's files: always without a
+        mesh, on rank 0 with one."""
+        return self.mesh is None or self.mesh.is_main
 
     def _render_tracks(self, result):
         """The tracks to draw for a pose result (the smoothed pass when
@@ -155,7 +181,7 @@ class Text2VideoPipeline:
         timer = StageTimer()
         with timer.stage("pose_synthesis"):
             result = self.pose_stage.run(
-                ts, device=cfg.pose_device == "device")
+                ts, device=cfg.pose_device == "device", mesh=self.mesh)
 
         face, pose, hands, raster_canvas = self._render_tracks(result)
         need_host_labels = (self.renderer is None or cfg.emit_intermediates
@@ -176,11 +202,13 @@ class Text2VideoPipeline:
                     device=self.device,
                 )
             if cfg.stream and not need_host_labels:
+                # A rank that writes nothing renders all the same.
                 muxer = StreamingMuxer(
                     base, w2, h2, fps=self.profile.fps,
                     sample_rate=sample_rate, audio=audio,
                     wire_quality=self.renderer.config.wire_quality,
-                )
+                ) if self.writes else None
+                n_done = 0
                 with timer.stage("render"):
                     if self.renderer.config.wire_format == "dct":
                         # The wire's coefficients go straight to the muxer's
@@ -188,15 +216,19 @@ class Text2VideoPipeline:
                         for coeffs, _ in self.renderer.render_stream_coeffs(
                             chunks, t_frames, timer=timer
                         ):
-                            muxer.add_coeffs(*coeffs)
+                            n_done += coeffs[0].shape[0]
+                            if muxer is not None:
+                                muxer.add_coeffs(*coeffs)
                     else:
                         for y, u, v in self.renderer.render_stream_yuv(
                             chunks, t_frames, timer=timer
                         ):
-                            muxer.add_yuv(y, u, v)
+                            n_done += y.shape[0]
+                            if muxer is not None:
+                                muxer.add_yuv(y, u, v)
                 with timer.stage("mux"):
-                    files = muxer.close()
-                t_frames = muxer.n_frames
+                    files = muxer.close() if muxer is not None else []
+                t_frames = muxer.n_frames if muxer is not None else n_done
             else:
                 with timer.stage("render"):
                     frames = self.renderer.render_from_device_chunks(
@@ -206,19 +238,26 @@ class Text2VideoPipeline:
                         [c.cpu().numpy() for c in chunks], axis=0)[:t_frames]
         else:
             with timer.stage("rasterize"):
-                labels = rasterize_batch(
-                    face, pose, hands[:, 0], hands[:, 1], raster_canvas,
-                    chunk=cfg.frame_chunk, device=self.device,
-                )
+                if self.mesh is not None:
+                    labels = rasterize_batch_sharded(
+                        face, pose, hands[:, 0], hands[:, 1], raster_canvas,
+                        self.mesh)
+                else:
+                    labels = rasterize_batch(
+                        face, pose, hands[:, 0], hands[:, 1], raster_canvas,
+                        chunk=cfg.frame_chunk, device=self.device,
+                    )
             frames = labels  # skeleton passthrough (no trained GAN)
 
         if frames is not None:
-            with timer.stage("mux"):
-                files = mux(frames, audio, base, fps=self.profile.fps,
-                            sample_rate=sample_rate)
+            files = []
+            if self.writes:
+                with timer.stage("mux"):
+                    files = mux(frames, audio, base, fps=self.profile.fps,
+                                sample_rate=sample_rate)
             t_frames = frames.shape[0]
 
-        if cfg.emit_intermediates:
+        if cfg.emit_intermediates and self.writes:
             self._emit_intermediates(out_dir, name, result, labels, ts)
 
         stage_seconds = timer.totals()
@@ -276,7 +315,7 @@ class Text2VideoPipeline:
         run = self.synthesize(res.phones, name, audio=samples,
                               keep_arrays=keep_arrays)
         run.stage_seconds = {**timer.totals(), **run.stage_seconds}
-        if self.config.emit_intermediates:
+        if self.config.emit_intermediates and self.writes:
             out_dir = os.path.join(self.config.out_dir, self.profile.name)
             inter = os.path.join(out_dir, name + "_intermediates")
             os.makedirs(inter, exist_ok=True)
@@ -300,14 +339,17 @@ class Text2VideoPipeline:
         run.stage_seconds = {**timer.totals(), **run.stage_seconds}
         return run
 
-    def run_audio_batch(self, items, keep_arrays: bool = False
+    def run_audio_batch(self, items, mesh=None, keep_arrays: bool = False
                         ) -> List[RunResult]:
         """Batched serving: many (text, wav_path) pairs rendered as ONE
         generator batch. Alignment, pose and rasterization run per
         utterance; the autoregressive GAN pass pads every utterance's
         labels (on the device) to the longest and scans them together, each
-        generator step at batch len(items). Returns a RunResult per item,
-        in input order."""
+        generator step at batch len(items). With ``mesh`` (default: the
+        pipeline's), the batch axis shards over its "data" axis: each rank
+        scans len(items) / n rows, which must divide. Returns a RunResult
+        per item, in input order."""
+        mesh = self.mesh if mesh is None else mesh
         if self.aligner is None:
             raise RuntimeError("run_audio_batch needs an EnglishAligner")
         cfg = self.config
@@ -347,8 +389,8 @@ class Text2VideoPipeline:
                     batch[i, : labels.shape[0]] = labels
 
         with timer.stage("render"):
-            frames_b = (self.renderer.render_many_device(batch) if on_device
-                        else batch)
+            frames_b = (self.renderer.render_many_device(batch, mesh=mesh)
+                        if on_device else batch)
 
         out_dir = os.path.join(cfg.out_dir, self.profile.name)
         os.makedirs(out_dir, exist_ok=True)
@@ -357,10 +399,12 @@ class Text2VideoPipeline:
             name = derive_file_name(text)
             t = labels.shape[0]
             frames = frames_b[i, :t]
-            with timer.stage("mux"):
-                files = mux(frames, samples, os.path.join(out_dir, name),
-                            fps=self.profile.fps,
-                            sample_rate=ALIGN_SAMPLE_RATE)
+            files = []
+            if mesh is None or mesh.is_main:
+                with timer.stage("mux"):
+                    files = mux(frames, samples, os.path.join(out_dir, name),
+                                fps=self.profile.fps,
+                                sample_rate=ALIGN_SAMPLE_RATE)
             host_labels = (labels.cpu().numpy() if on_device else labels)
             results.append(RunResult(
                 name=name, num_frames=t, files=files, timestamps=ts,

@@ -4,7 +4,8 @@ counterpart of ``text2video_tpu/pose_stage.py``).
 Both branches plan on the host with ``plan_pose_track``. ``device=False``
 runs the bit-exact float64 host blend and smoother; ``device=True`` runs the
 fused gather + blend + smoothing op (kernel B2 on a card) on the stage's
-torch device.
+torch device. With a mesh, the bit-exact smoother runs with the time axis
+sharded over the mesh's "data" axis (``smooth_recursive_sharded``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,10 @@ from text2video_tpu_torch.ops.interp import (
     plan_pose_track,
     synthesize_host,
 )
-from text2video_tpu_torch.ops.smooth import smooth_host
+from text2video_tpu_torch.ops.smooth import (
+    smooth_host,
+    smooth_recursive_sharded,
+)
 
 
 @dataclasses.dataclass
@@ -65,13 +69,27 @@ class PoseStage:
             profile.keypoints_dir, profile.keypoint_layout)
         self.device = devices.resolve(device)
 
-    def run(self, ts: Timestamps, device: bool = True) -> PoseResult:
+    def run(self, ts: Timestamps, device: bool = True,
+            mesh=None) -> PoseResult:
         """device=True: float32 fused op on ``self.device``; device=False:
         the bit-exact float64 host path. The unsmoothed tracks always come
-        from the exact host blend."""
+        from the exact host blend.
+
+        ``mesh`` (``parallel.make_mesh``; every rank calls with the same
+        timestamps): the utterance's time axis, padded to a multiple of the
+        "data" axis, is smoothed by ``smooth_recursive_sharded``, whatever
+        ``device`` says, as the JAX package's mesh path does: the smoothed
+        tracks are byte-equal to the host path's on every rank."""
         plan = plan_pose_track(ts, self.pdict, self.table, self.profile)
         face, pose = synthesize_host(plan, self.table)
-        if device:
+        if mesh is not None:
+            t = face.shape[0]
+            pad = ((0, -t % mesh.n_data), (0, 0))
+            face_s, pose_s = smooth_recursive_sharded(
+                np.pad(face, pad), np.pad(pose, pad), mesh,
+                self.profile.smooth_width, t_valid=t)
+            face_s, pose_s = face_s[:t], pose_s[:t]
+        elif device:
             face_s, pose_s = synthesize_and_smooth(
                 plan, self.table, self.profile.smooth_width, self.device)
             face_s = face_s.cpu().numpy().astype(np.float64)

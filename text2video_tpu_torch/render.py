@@ -16,8 +16,13 @@ over the whole timeline instead: each sweep runs the generator on
 previous sweep. The streaming paths send each chunk to the host as one flat
 wire tensor in the format of ``RenderConfig.wire_format``: ``"dct"`` (the
 default) bit-packed, truncated, quantized DCT coefficients
-(``ops/dct.py``), ``"yuv420"`` the uint8 planes. Not ported here: mesh
-sharding (of the scan's batch and of the Jacobi timeline).
+(``ops/dct.py``), ``"yuv420"`` the uint8 planes.
+
+With a mesh (``parallel.make_mesh``), ``render_many`` shards the batch of
+utterances over the "data" axis, each rank scanning its rows, and
+``render_jacobi_sharded`` spreads one utterance's timeline over it, each rank
+sweeping its block of frames after a halo of the previous sweep's frames from
+the rank before it.
 """
 
 from __future__ import annotations
@@ -46,6 +51,11 @@ from text2video_tpu_torch.ops.dct import (
     packed_plane_bytes,
     quant_tables,
     unpack_plane_shift_np,
+)
+from text2video_tpu_torch.parallel.mesh import (
+    gather_rows,
+    halo_rows,
+    padded_rows,
 )
 
 Carry = Tuple[torch.Tensor, torch.Tensor, int]
@@ -245,6 +255,90 @@ class Renderer:
                 outs.append(frame.to(dt))
             frames = torch.cat(outs, dim=0)
         return frames.float()
+
+    @torch.inference_mode()
+    def _jacobi_block(self, labels: torch.Tensor, sweeps: int,
+                      mesh) -> torch.Tensor:
+        """This rank's share of :meth:`jacobi_device` over ``mesh``: the
+        timeline's ``t`` frames, padded to a multiple of the "data" axis, in
+        blocks of ``per`` frames, one a rank. ``labels`` [t, H, W, 3]: the
+        whole timeline (uint8, or floats in [-1, 1]) on any device, the same
+        on every rank. Returns this rank's [per, H', W', 3] f32 frames, zeros
+        past ``t``.
+
+        The label context of the block's first frames reads the
+        ``n_frames_ctx - 1`` labels before it from the replicated input.
+        Before each sweep the block takes the previous sweep's last
+        ``use_prev_frames`` frames of the rank before it (``halo_rows``).
+        The generator runs on the block's share of the single process's
+        ``time_bucket`` slices of the global timeline, so where the blocks
+        start on bucket boundaries every call is one of ``jacobi_device``'s
+        and the frames are its bits."""
+        cfg = self.config
+        t, h, w = labels.shape[:3]
+        h2, w2 = self.target_hw(h, w)
+        dt, dev = self.generator.dtype, self.device
+        per, _ = padded_rows(t, mesh)
+        start = mesh.rank * per
+        n_local = max(min(start + per, t) - start, 0)
+        n_ctx, n_prev = cfg.n_frames_ctx - 1, cfg.use_prev_frames
+        if n_local:
+            lo = max(start - n_ctx, 0)
+            lab = labels[lo: start + n_local].to(dev)
+            lab = (lab.float() / 127.5 - 1.0 if lab.dtype == torch.uint8
+                   else lab.float())
+            if (h2, w2) != (h, w):
+                lab = resize_labels(lab, h2, w2)
+            lab = lab.to(dt)
+            front = n_ctx - (start - lo)  # context before frame 0: zeros
+            lab = torch.cat([lab.new_zeros((front,) + lab.shape[1:]), lab])
+            labels_ctx = torch.cat(
+                [lab[n_ctx - k: n_ctx - k + n_local]
+                 for k in range(n_ctx + 1)], dim=-1)
+            has_prev = (torch.arange(start, start + n_local,
+                                     device=dev) > 0).float()
+        bucket = max(min(self.time_bucket, t), 1)
+        frames = torch.zeros((per, h2, w2, 3), dtype=dt, device=dev)
+        for _ in range(max(int(sweeps), 1)):
+            halo, _ = halo_rows(frames, mesh, n_prev, 0)
+            ext = torch.cat([halo, frames])
+            prev_imgs = torch.cat(
+                [ext[n_prev - k: n_prev - k + n_local]
+                 for k in range(1, n_prev + 1)], dim=-1)
+            outs = []
+            g = start
+            while g < start + n_local:
+                hi = min((g // bucket + 1) * bucket, start + n_local)
+                i0, i1 = g - start, hi - start
+                frame, _, _ = self.generator(labels_ctx[i0:i1],
+                                             prev_imgs[i0:i1],
+                                             has_prev[i0:i1])
+                outs.append(frame.to(dt))
+                g = hi
+            # The padding rows past t stay zero.
+            frames = torch.cat(outs + [frames[n_local:]], dim=0)
+        return frames.float()
+
+    def jacobi_sharded(self, labels: torch.Tensor, sweeps: int,
+                       mesh) -> torch.Tensor:
+        """:meth:`jacobi_device` with the timeline spread over ``mesh``'s
+        "data" axis (:meth:`_jacobi_block`): [t, H, W, 3] labels in [-1, 1],
+        the same on every rank -> the whole [t, H', W', 3] f32 frames on
+        every rank, on the renderer's device."""
+        block = self._jacobi_block(labels, sweeps, mesh)
+        return gather_rows(block, mesh, labels.shape[0])
+
+    def render_jacobi_sharded(self, labels_u8: np.ndarray, mesh,
+                              sweeps: int = 3) -> np.ndarray:
+        """:meth:`render_jacobi` with the timeline spread over ``mesh``'s
+        "data" axis: every rank calls with the same [T, H, W, 3] uint8 host
+        labels and gets all [min(T, max_frames), H', W', 3] uint8 frames.
+        Each rank uploads, sweeps and quantizes only its block; the blocks
+        are gathered as uint8."""
+        t = min(labels_u8.shape[0], self.config.max_frames)
+        block = self._jacobi_block(torch.as_tensor(labels_u8[:t]), sweeps,
+                                   mesh)
+        return gather_rows(_quantize_u8(block), mesh, t).cpu().numpy()
 
     def _jacobi_from_chunks(self, label_chunks, t: int) -> torch.Tensor:
         """The whole timeline of on-device uint8 label chunks, Jacobi-decoded
@@ -486,17 +580,43 @@ class Renderer:
             frames, carry = self._scan_chunk(labels, carry, n)
             yield frames[0]
 
-    def render_many(self, labels_u8: np.ndarray) -> np.ndarray:
+    def render_many(self, labels_u8: np.ndarray, mesh=None) -> np.ndarray:
         """[B, T, H, W, 3] uint8 host labels -> [B, T, H', W', 3] uint8
         frames: the utterances share one scan, each generator step at
-        batch B."""
-        return self.render_many_device(
-            torch.as_tensor(labels_u8, device=self.device))
+        batch B. With ``mesh`` the batch axis shards over its "data" axis:
+        every rank calls with the same labels, uploads and scans its B / n
+        rows (B must divide), and gets every row back."""
+        rows = self._mesh_rows(labels_u8.shape[0], mesh)
+        return self._scan_rows(
+            torch.as_tensor(labels_u8[rows], device=self.device), mesh)
 
-    def render_many_device(self, labels_u8: torch.Tensor) -> np.ndarray:
+    def render_many_device(self, labels_u8: torch.Tensor,
+                           mesh=None) -> np.ndarray:
         """Like :meth:`render_many`, for [B, T, H, W, 3] uint8 labels already
         on the device (e.g. stacked rasterizer output): the label side never
         goes through the host."""
+        rows = self._mesh_rows(labels_u8.shape[0], mesh)
+        return self._scan_rows(labels_u8[rows], mesh)
+
+    @staticmethod
+    def _mesh_rows(b: int, mesh) -> slice:
+        """This rank's rows of a batch of ``b`` utterances (all of them
+        without a mesh)."""
+        if mesh is None:
+            return slice(None)
+        if b % mesh.n_data:
+            raise ValueError(
+                f"batch of {b} utterances does not divide over the mesh's "
+                f"{mesh.n_data} data shards")
+        per = b // mesh.n_data
+        return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+    def _scan_rows(self, labels_u8: torch.Tensor, mesh) -> np.ndarray:
+        """[b, T, H, W, 3] uint8 device labels -> [b, min(T, max_frames),
+        H', W', 3] uint8 host frames, one scan at batch b; with ``mesh``
+        every rank's rows, gathered in rank order."""
         t = min(labels_u8.shape[1], self.config.max_frames)
-        chunks = self.generate_device(labels_u8[:, :t])
-        return torch.cat(chunks, dim=1)[:, :t].cpu().numpy()
+        out = torch.cat(self.generate_device(labels_u8[:, :t]), dim=1)[:, :t]
+        if mesh is not None:
+            out = gather_rows(out, mesh)
+        return out.cpu().numpy()

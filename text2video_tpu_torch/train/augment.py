@@ -53,6 +53,25 @@ class AugmentDraws:
         return AugmentDraws(**{f.name: move(getattr(self, f.name))
                                for f in dataclasses.fields(self)})
 
+    def rows(self, clips: slice, t: int) -> "AugmentDraws":
+        """The draws of the clips ``clips`` of the batch (its frames
+        ``clips.start * t`` on), clips of ``t`` frames each: a data-parallel
+        rank's share of the global batch's draws."""
+        lo = 0 if clips.start is None else clips.start
+        frames = slice(lo * t, None if clips.stop is None else clips.stop * t)
+
+        def cut(x, sl):
+            if x is None:
+                return None
+            if isinstance(x, tuple):
+                return tuple(v[sl] for v in x)
+            return x[sl]
+
+        return AugmentDraws(jitter=cut(self.jitter, frames),
+                            drop=cut(self.drop, frames),
+                            face=cut(self.face, frames),
+                            crop=cut(self.crop, clips))
+
 
 def draw_augment(
     b: int,

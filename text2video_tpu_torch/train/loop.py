@@ -6,8 +6,14 @@ The reference trains vid2vid with ``train.py --dataset_mode pose ...
 clip sampling (``train/data.py``), wall-clock and loss logging, periodic
 saves with auto-resume (``checkpoints.py``), and with ``device_data`` the
 augmented branch: keypoint tracks resident on the device, perturbed and drawn
-into label maps every step (``train/augment.py``). Not ported: the mesh (one
-device trains).
+into label maps every step (``train/augment.py``).
+
+Over several processes (torchrun, or a process group the caller started) the
+run is data-parallel over a mesh's "data" axis, as the JAX package shards its
+batch: every rank draws the same global batch from the seeded sampler (and the
+same augmentation draws), keeps its rows, and the step averages the gradients
+over the ranks in a fixed order (``train/trainer.py``), so every rank holds the
+same weights. Rank 0 logs, saves checkpoints and snapshots; every rank resumes.
 """
 
 from __future__ import annotations
@@ -20,9 +26,11 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from text2video_tpu_torch import checkpoints as ckpt
 from text2video_tpu_torch import device as devices
+from text2video_tpu_torch.parallel import mesh as meshes
 from text2video_tpu_torch.train import augment as aug
 from text2video_tpu_torch.train import trainer
 from text2video_tpu_torch.train.data import PoseClipDataset
@@ -93,6 +101,10 @@ def _to_device(batch: Dict[str, np.ndarray],
     return out
 
 
+def _quiet(_: str) -> None:
+    """The log of a rank other than 0: nothing."""
+
+
 # Step i of a run draws from generators seeded with this stride times
 # (seed + 1) plus i: no two steps of a run share a stream.
 _AUG_SEED_STRIDE = 1_000_003
@@ -100,6 +112,30 @@ _AUG_SEED_STRIDE = 1_000_003
 
 def _unit(x_u8: torch.Tensor) -> torch.Tensor:
     return x_u8.float() / 127.5 - 1.0
+
+
+def distributed() -> bool:
+    """Whether this process is one of several: a process group is up, or
+    torchrun's environment names a world."""
+    return dist.is_available() and (dist.is_initialized()
+                                    or "WORLD_SIZE" in os.environ)
+
+
+def _data_mesh(batch_size: int, n_data: Optional[int], n_model: int, device,
+               log_fn: Callable[[str], None]):
+    """The training mesh of a distributed run (``meshes.make_mesh``), with
+    the JAX package's default for ``n_data``: the largest divisor of the
+    batch that fits the processes. None on a process outside it."""
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ["WORLD_SIZE"]))
+    if n_data is None:
+        avail = max(world // n_model, 1)
+        n_data = max(d for d in range(1, avail + 1) if batch_size % d == 0)
+    mesh = meshes.make_mesh(n_data=n_data, n_model=n_model, device=device)
+    if mesh is None:
+        log_fn(f"rank {dist.get_rank()} of {world} is outside the "
+               f"{n_data}-way data mesh; leaving")
+    return mesh
 
 
 def train_gan(
@@ -111,13 +147,15 @@ def train_gan(
     ckpt_dir: Optional[str] = None,
     save_every: int = 200,
     log_every: int = 10,
+    n_data: Optional[int] = None,
+    n_model: int = 1,
     device_data: bool = False,
     sample_every: int = 0,
     stall_timeout: float = 0.0,
     vgg_params=None,
     log_fn: Callable[[str], None] = print,
     device=None,
-) -> TrainerState:
+) -> Optional[TrainerState]:
     """Train the pose2frame GAN on ``device`` (the card unless the caller
     names another); returns the final state.
 
@@ -137,7 +175,38 @@ def train_gan(
     saves every ``save_every`` steps and at the end, and with
     ``sample_every`` writes [real | fake | label] strips beside the
     checkpoints. ``stall_timeout > 0`` arms a :class:`_StallWatchdog`.
+
+    Data parallelism: when this process is one of several
+    (:func:`distributed`: torchrun, or a process group already up), the run
+    shards its batch over a mesh's "data" axis (``n_data`` ranks, by default
+    the largest divisor of ``batch_size`` that fits the processes;
+    ``batch_size`` must divide). A process outside the mesh logs and
+    returns None. ``n_model > 1`` raises ``NotImplementedError`` (the model
+    axis is not ported). A single process trains alone, as before.
     """
+    if n_model != 1:
+        raise NotImplementedError(
+            f"n_model={n_model}: {meshes.MODEL_AXIS_TODO}")
+    mesh = None
+    if distributed():
+        mesh = _data_mesh(batch_size, n_data, n_model, device, log_fn)
+        if mesh is None:
+            return None
+    elif n_data not in (None, 1):
+        raise ValueError(f"n_data={n_data} needs several processes "
+                         "(torchrun)")
+    if mesh is not None:
+        if batch_size % mesh.n_data:
+            raise ValueError(f"batch {batch_size} does not divide over the "
+                             f"mesh's {mesh.n_data} data shards")
+        device = mesh.device
+        per = batch_size // mesh.n_data
+        rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+        if not mesh.is_main:
+            log_fn = _quiet
+    else:
+        rows = slice(None)
+    writes = mesh is None or mesh.is_main
     device = devices.resolve(device)
     w, h = dataset.canvas
     cfg = cfg or TrainConfig(height=h, width=w)
@@ -151,7 +220,16 @@ def train_gan(
     if ckpt_dir is not None and ckpt.latest_step_dir(ckpt_dir):
         state = ckpt.restore_state(ckpt_dir, state)
         log_fn(f"resumed from step {state.step}")
-    step_fn = make_train_step(cfg)
+    if mesh is None:
+        step_fn = make_train_step(cfg)
+    else:
+        # Every rank starts from rank 0's weights (they are equal already:
+        # one seed, or one checkpoint).
+        meshes.replicate([*state.generator.parameters(),
+                          *state.discriminators.parameters()], mesh)
+        step_fn = make_train_step(cfg, mesh=mesh)
+        log_fn(f"data-parallel over {mesh.n_data} ranks ({mesh.backend}), "
+               f"{per} of each batch's {batch_size} clips a rank")
 
     augment = device_data and (
         cfg.aug_jitter_px > 0 or cfg.aug_drop_prob > 0
@@ -188,7 +266,7 @@ def train_gan(
     # one fixed clip through the current generator, written as a
     # [real | fake | label] strip beside the checkpoints.
     sample_batch = None
-    if sample_every > 0 and ckpt_dir is not None:
+    if sample_every > 0 and ckpt_dir is not None and writes:
         sample_batch = dataset.batch(np.random.RandomState(123), 1)
 
     def save_snapshot(step_num: int) -> None:
@@ -220,10 +298,12 @@ def train_gan(
     watchdog = (_StallWatchdog(stall_timeout, log_fn)
                 if stall_timeout > 0 else None)
     for i in range(steps):
+        # Every rank draws the whole batch from the same streams and keeps
+        # its rows: the global batch is the single process's.
         if device_data:
             idx = torch.from_numpy(np.stack(
                 [dataset.sample_clip_indices(rng)
-                 for _ in range(batch_size)])).to(device)
+                 for _ in range(batch_size)])[rows]).to(device)
         if augment:
             # One scale a step, chosen on the host: the step's shapes never
             # wait for the device.
@@ -231,19 +311,21 @@ def train_gan(
             scale = (scales[np.random.RandomState(step_seed).randint(
                 len(scales))] if cfg.aug_scale_crop else None)
             aug_gen.manual_seed(step_seed)
+            draws = aug.draw_augment(batch_size, dataset.clip_len, aug_gen,
+                                     scale_crop=scale is not None, **aug_kw)
             batch, _ = aug.augmented_batch(
                 tracks, reals_all, centers_all, idx,
-                aug.draw_augment(batch_size, dataset.clip_len, aug_gen,
-                                 scale_crop=scale is not None, **aug_kw),
-                dataset.canvas, scale=scale, **aug_kw)
+                draws.rows(rows, dataset.clip_len), dataset.canvas,
+                scale=scale, **aug_kw)
         elif device_data:
             batch = {"labels": _unit(labels_all[idx]),
                      "reals": _unit(reals_all[idx]),
                      "face_centers": centers_all[idx]}
         else:
-            batch = _to_device(dataset.batch(
+            batch = _to_device({k: v[rows] for k, v in dataset.batch(
                 rng, batch_size,
-                with_flow=cfg.flow_supervision == "reference"), device)
+                with_flow=cfg.flow_supervision == "reference").items()},
+                device)
         state, metrics = step_fn(state, batch)
         frames_done += batch_size * dataset.clip_len
         if (i + 1) % log_every == 0:
@@ -257,10 +339,15 @@ def train_gan(
         if sample_batch is not None and (i + 1) % sample_every == 0:
             save_snapshot(state.step)
         if ckpt_dir is not None and (i + 1) % save_every == 0:
-            ckpt.save_state(ckpt_dir, state, cfg)
+            if writes:
+                ckpt.save_state(ckpt_dir, state, cfg)
             last_saved = state.step
-    if ckpt_dir is not None and state.step != last_saved:
+    if ckpt_dir is not None and state.step != last_saved and writes:
         ckpt.save_state(ckpt_dir, state, cfg)
+    if mesh is not None:
+        # No rank leaves before rank 0's checkpoint is on disk: a run that
+        # resumes from it right after must find it on every rank.
+        meshes.barrier(mesh)
     if watchdog is not None:
         watchdog.stop()
     return state

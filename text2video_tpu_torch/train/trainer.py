@@ -20,6 +20,13 @@ fused conv + statistics op has no backward, here as in the JAX package.
 A step runs in PyTorch's deterministic mode (:func:`deterministic_algorithms`),
 so two runs from one seed on one card give bit-equal losses and weights, as
 the JAX package's training does.
+
+Over a mesh (``make_train_step(cfg, mesh=)``), each rank of the "data" axis
+takes its rows of the global batch; before the optimizer steps, the
+gradients and metrics are averaged over the ranks in rank order
+(``parallel.mesh.mean_ordered``), so every rank applies the same update bits
+and the averaged gradient is the global batch's, as the JAX package's
+sharded step computes it.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from text2video_tpu_torch.models.discriminator import (
     face_crop,
 )
 from text2video_tpu_torch.models.generator import CompositeGenerator
+from text2video_tpu_torch.parallel.mesh import mean_ordered
 
 METRICS = ("g_loss", "g_adv", "g_fm", "g_vgg", "g_flow", "g_mouth_l1",
            "d_loss")
@@ -291,7 +299,7 @@ Step = Callable[[TrainerState, Mapping[str, torch.Tensor]],
                 Tuple[TrainerState, Dict[str, torch.Tensor]]]
 
 
-def make_train_step(cfg: TrainConfig) -> Step:
+def make_train_step(cfg: TrainConfig, mesh=None) -> Step:
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     batch: {"labels": [B,T,H,W,3] float in [-1,1], "reals": the same,
@@ -299,7 +307,11 @@ def make_train_step(cfg: TrainConfig) -> Step:
     [B,T-1,H,W,2]}, tensors on the state's device. ``state`` is updated in
     place and returned; ``metrics`` are 0-dim f32 tensors on the device
     (reading one waits for the step). After a step every parameter's
-    ``.grad`` holds the gradient that the update used."""
+    ``.grad`` holds the gradient that the update used.
+
+    With ``mesh``, ``batch`` is this rank's rows of the global batch (an
+    equal share on every rank) and the update uses the mean over the
+    ranks of their gradients; ``metrics`` are the means too."""
     adversarial = cfg.lambda_adv > 0.0
 
     def apply_discriminators(discs, labels_f, frames, frames_f, centers_f):
@@ -445,6 +457,17 @@ def make_train_step(cfg: TrainConfig) -> Step:
                            for k, v in m.items()}
         if accum > 1:
             metrics = {k: v / accum for k, v in metrics.items()}
+        if mesh is not None and mesh.n_data > 1:
+            # One bucket, one all_gather: G's and D's gradients and the
+            # metrics, summed in rank order.
+            names = sorted(metrics)
+            d_list = d_total if d_total is not None else []
+            synced = mean_ordered(
+                g_total + d_list + [metrics[k] for k in names], mesh)
+            g_total = synced[:len(g_total)]
+            if d_total is not None:
+                d_total = synced[len(g_total): len(g_total) + len(d_list)]
+            metrics = dict(zip(names, synced[len(g_total) + len(d_list):]))
         for p, g in zip(g_params, g_total):
             p.grad = g / accum if accum > 1 else g
         state.g_opt.step()
