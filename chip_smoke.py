@@ -50,9 +50,18 @@ bit-equal to one process's, B1's launches counted on each rank),
 ``Text2VideoPipeline(mesh=)`` on the skeleton path (tracks byte-equal to
 ``smooth_host``, labels pixel-equal to ``rasterize_batch``, one mp4), and
 ``train-gan`` data-parallel over the ranks twice (step 1 against one
-process's, the runs bit-equal, the checkpoint served by one process); and
-``train-gan`` under ``torchrun --nproc-per-node 1`` against a plain process
-(bit-equal checkpoints).
+process's, the runs bit-equal, the checkpoint served by one process); then
+the mesh's model axis: ``train-gan --n-model 2`` in four ranks on a 2 x 2
+(data, model) grid, its wide conv kernels held as output-channel shards and
+gathered once a micro-batch, bit-equal to the two-rank (2, 1) run (losses,
+whole weights and Adam moments), its checkpoint restored in one process and
+served; ``graft_entry.dryrun_multichip(4)`` (a train step over (2, 2),
+Jacobi, the smoother and the rasterizer over four ranks); one call of
+``graft_entry.entry()``'s flagship forward through B1; and ``train-gan``
+under ``torchrun --nproc-per-node 1`` against a plain process (bit-equal
+checkpoints). ``python3 chip_smoke.py --mesh`` runs the mesh phases alone
+(over NCCL too on a host with several cards; the model axis on four), and
+``--mesh-model`` the model axis alone.
 
 Prints one line per phase (each with ``at_s``, the seconds since the start),
 then a JSON line with each kernel's launches on
@@ -95,6 +104,7 @@ B1_SHAPES = [  # (shape, kernel scale or None for lecun)
     ((64, 48, 64, 512), None),  # a Jacobi sweep's full bucket
     ((32, 48, 64, 512), None),  # the tail bucket of a 224-frame clip
     ((2, 16, 24, 64), None),
+    ((2, 4, 4, 64), None),      # a dry-run rank's Jacobi block (base 8)
     ((1, 12, 28, 128), 0.05),   # odd sizes of the JAX package's tests
     ((1, 8, 112, 128), 0.05),
     ((1, 4, 16, 128), 0.05),
@@ -1882,6 +1892,297 @@ def mesh_phases(tmp: str, data: str, ckpt: str, labels: np.ndarray,
     return by_path
 
 
+# ---- the mesh's model axis: train-gan on a (data, model) grid -----------------
+
+GRID_WORLD = 4
+GRID_MODEL = 2
+# Wide conv kernels (4-D, >= 256 output channels) of the train-gan default:
+# 21 in G (two downsamples, 18 resblock convs, the first upsample) and 9 in
+# the Ds (two in each of the image D's two scales, two in each temporal D,
+# one in the face D).
+GRID_WIDE_KERNELS = 30
+
+
+def grid_rank(rank: int, world: int, spec_path: str) -> None:
+    """One rank of :func:`mesh_model_phase` (started by ``parallel.spawn``
+    with JAX blocked): joins the group through a ``file://`` store, runs
+    ``train-gan`` (``spec["argv"]``, with its ``--n-model``) through the
+    CLI, and writes ``rank<r>.json``: each step's seconds, metrics, the
+    gradient sync's and the kernel gather's seconds, kernels gathered; a
+    rank's parameter and Adam bytes against the whole model's; the bytes a
+    micro-batch gathers; peak memory; B1 and B2 launches."""
+    import datetime
+
+    from text2video_tpu_torch import cli
+    from text2video_tpu_torch.parallel import model_axis
+    from text2video_tpu_torch.train import loop, trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    # The card the CLI picks for this rank (its rank modulo the cards),
+    # current before anything touches CUDA.
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.distributed.init_process_group(
+        spec["backend"], init_method="file://" + spec["store"], rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300))
+    records, sizes = [], {}
+    mean, make = trainer.mean_ordered, loop.make_train_step
+    gather = model_axis._gather_last_axis
+    clock = {"sync_s": 0.0, "gather_s": 0.0}
+
+    def timed_into(key, fn):
+        def wrapped(*args):
+            out, seconds = timed(lambda: fn(*args))
+            clock[key] += seconds
+            return out
+        return wrapped
+
+    def param_bytes(state):
+        """(a rank's f32 parameters and two Adam moments, the whole model's,
+        bytes of whole kernels a micro-batch gathers in the compute dtype,
+        of which the other model ranks send (n - 1) / n)."""
+        local = full = gathered = 0
+        for net in (state.generator, state.discriminators):
+            for m in net.modules():
+                for name, p in m.named_parameters(recurse=False):
+                    n = p.numel() * p.element_size()
+                    shard = getattr(m, "shard", None) if name == "kernel" \
+                        else None
+                    whole = n if shard is None else (
+                        n // (shard[1] - shard[0]) * shard[2])
+                    local, full = local + 3 * n, full + 3 * whole
+                    if shard is not None:
+                        gathered += (whole // p.element_size()
+                                     * torch.finfo(m.dtype).bits // 8)
+        return dict(local_bytes=local, full_bytes=full,
+                    gathered_bytes=gathered)
+
+    def recording_make(cfg, **kw):
+        step = make(cfg, **kw)
+
+        def recorded(state, batch):
+            if not sizes:
+                sizes.update(param_bytes(state))
+            clock.update(sync_s=0.0, gather_s=0.0)
+            before = model_axis.gathers
+            (state, metrics), seconds = timed(lambda: step(state, batch))
+            records.append(dict(step_s=seconds, gathered=model_axis.gathers
+                                - before, **clock,
+                                metrics={k: float(v)
+                                         for k, v in metrics.items()}))
+            return state, metrics
+
+        return recorded
+
+    trainer.mean_ordered = timed_into("sync_s", mean)
+    model_axis._gather_last_axis = timed_into("gather_s", gather)
+    loop.make_train_step = recording_make
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _, wall, n = run_main(cli.main, spec["argv"])
+    finally:
+        trainer.mean_ordered, loop.make_train_step = mean, make
+        model_axis._gather_last_axis = gather
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(dict(
+            steps=records, wall_s=wall, launches=n, **sizes,
+            device=str(torch.device("cuda", torch.cuda.current_device())),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            loaded=sorted(k for k, v in sys.modules.items() if v is not None
+                          and k.split(".")[0] in MESH_BLOCKED)), f)
+    torch.distributed.destroy_process_group()
+
+
+def run_grid(root: str, backend: str, world: int, argv) -> list:
+    """``train-gan`` (``argv``) in ``world`` :func:`grid_rank` ranks over
+    ``backend``: each rank's record."""
+    from text2video_tpu_torch.parallel import spawn
+
+    os.makedirs(root)
+    spec_path = os.path.join(root, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(dict(backend=backend, store=os.path.join(root, "store"),
+                       out=root, argv=argv), f)
+    spawn("chip_smoke:grid_rank", world, (spec_path,),
+          timeout_s=MESH_TIMEOUT_S, block=MESH_BLOCKED)
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    check(all(not rk["loaded"] for rk in ranks),
+          f"a rank imported JAX or the JAX package: "
+          f"{[rk['loaded'] for rk in ranks]}")
+    return ranks
+
+
+def mesh_train_refs(tmp: str) -> dict:
+    """What ``[mesh_train]`` left for :func:`mesh_model_phase`, by backend:
+    its first run's directory and its steps' metrics, and the step seconds
+    of its second run."""
+    refs = {}
+    for backend in ("gloo", "nccl"):
+        out = os.path.join(tmp, "mesh", backend)
+        if os.path.exists(os.path.join(out, "rank0.json")):
+            with open(os.path.join(out, "rank0.json")) as f:
+                train = json.load(f)["train"]
+            refs[backend] = dict(ckpt=os.path.join(out, "train", "dp_a"),
+                                 metrics=train["dp_a"]["metrics"],
+                                 step_s=train["dp_b"]["step_s"][1:])
+    return refs
+
+
+def mesh_model_phase(tmp: str, train_argv, labels: np.ndarray,
+                     refs=None) -> None:
+    """``[mesh_model]``: ``train-gan --n-model 2`` over a 2 x 2 grid of
+    ranks at full width (``train_argv``: 512x384, base 64, 9 resblocks,
+    bf16, batch 2 x clip 8, device data; 3 steps), held against the same
+    run at ``n_model=1`` over two ranks (``refs[backend]``: its directory,
+    its steps' metrics and seconds, from ``[mesh_train]``; made here when
+    not given): the losses of every step and the whole weights and Adam
+    moments of the two checkpoints bit-equal, each wide kernel gathered once
+    a micro-batch, and the (2, 2) directory restored in one process and
+    served through B1 (on ``labels``' first 8 maps). Four gloo ranks share
+    the one card; on a host with four cards or more, four NCCL ranks take
+    one each as well."""
+    from text2video_tpu_torch.bench import device_info
+    from text2video_tpu_torch.checkpoints import (
+        STATE_NAME,
+        latest_step_dir,
+        load_renderer,
+        restore_state,
+    )
+    from text2video_tpu_torch.config import get_profile
+    from text2video_tpu_torch.train import trainer
+
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count()
+                           >= GRID_WORLD else [])
+    refs = dict(refs or {})
+    root = os.path.join(tmp, "mesh_model")
+    for backend in backends:
+        out = os.path.join(root, backend)
+        if backend not in refs:
+            ckpt = os.path.join(out, "ref_ckpt")
+            ranks = run_grid(os.path.join(out, "ref"), backend, 2,
+                             train_argv + ["--ckpt", ckpt, "--steps",
+                                           str(MESH_TRAIN_STEPS)])
+            refs[backend] = dict(ckpt=ckpt, metrics=[
+                s["metrics"] for s in ranks[0]["steps"]],
+                step_s=[s["step_s"] for s in ranks[0]["steps"][1:]])
+        ref = refs[backend]
+        ckpt = os.path.join(out, "grid_ckpt")
+        torch.cuda.empty_cache()  # the ranks share the card with us
+        ranks, wall = timed(lambda: run_grid(
+            os.path.join(out, "grid"), backend, GRID_WORLD,
+            train_argv + ["--ckpt", ckpt, "--steps", str(MESH_TRAIN_STEPS),
+                          "--n-model", str(GRID_MODEL)]))
+        metrics = [[s["metrics"] for s in rk["steps"]] for rk in ranks]
+        check(all(m == metrics[0] for m in metrics),
+              "mesh_model: the ranks' losses differ")
+        check(metrics[0] == ref["metrics"],
+              f"mesh_model: losses differ from the (2, 1) run's: "
+              f"{metrics[0]} vs {ref['metrics']}")
+        gathered = [[s["gathered"] for s in rk["steps"]] for rk in ranks]
+        check(gathered == [[GRID_WIDE_KERNELS] * MESH_TRAIN_STEPS]
+              * GRID_WORLD, f"mesh_model: kernels gathered {gathered}")
+        check(all(rk["launches"]["conv3x3_stats"] == 0
+                  and rk["launches"]["synthesize_and_smooth"] == 0
+                  for rk in ranks), "mesh_model: an inference kernel "
+              f"launched: {[rk['launches'] for rk in ranks]}")
+        states = [torch.load(os.path.join(latest_step_dir(d), STATE_NAME),
+                             map_location="cpu", weights_only=True)
+                  for d in (ckpt, ref["ckpt"])]
+        same = state_diff(*states)
+        check(states[0]["step"] == MESH_TRAIN_STEPS and same[0] == 0,
+              f"mesh_model: the (2, 2) and (2, 1) states differ: {same}")
+        del states
+        # The (2, 2) directory in one process: whole tensors restore into a
+        # whole state, and a renderer serves from it through B1.
+        whole = restore_state(ckpt, trainer.create_trainer_state(
+            trainer.TrainConfig(height=384, width=512)))
+        check(whole.step == MESH_TRAIN_STEPS, f"restored {whole.step}")
+        del whole
+        served = load_renderer(ckpt, get_profile("fadg0"))
+        frames, _, n = _counted(lambda: served.render_from_device_chunks(
+            [torch.from_numpy(labels[:8]).cuda()], 8))
+        check(n["conv3x3_stats"] == 18 * 8 and frames.std() > 0,
+              f"mesh_model: the (2, 2) checkpoint served {n}")
+        del served
+        step_s = [[s["step_s"] for s in rk["steps"][1:]] for rk in ranks]
+        sync_s = [[s["sync_s"] for s in rk["steps"][1:]] for rk in ranks]
+        gather_s = [[s["gather_s"] for s in rk["steps"][1:]] for rk in ranks]
+        cards = sorted({rk["device"] for rk in ranks})
+        phase("mesh_model", backend=backend, world=GRID_WORLD,
+              grid=f"{GRID_WORLD // GRID_MODEL}x{GRID_MODEL}",
+              devices=[rk["device"] for rk in ranks],
+              cards=json.dumps(["{name}, {power_limit}".format(
+                  **device_info(torch.device(c))) for c in cards]),
+              hw="512x384",
+              base_ch=64, n_blocks=9, batch=2, clip_len=8,
+              steps=MESH_TRAIN_STEPS, losses_bit_equal_vs_2x1=True,
+              tensors_equal=f"{same[3]}/{same[3]}",
+              kernels_gathered_a_microbatch=GRID_WIDE_KERNELS,
+              local_param_adam_bytes_by_rank=[rk["local_bytes"]
+                                              for rk in ranks],
+              full_param_adam_bytes=ranks[0]["full_bytes"],
+              gathered_bytes_a_microbatch=ranks[0]["gathered_bytes"],
+              received_bytes_a_microbatch=ranks[0]["gathered_bytes"]
+              * (GRID_MODEL - 1) // GRID_MODEL,
+              step_s_by_rank=step_s, gather_s_by_rank=gather_s,
+              sync_s_by_rank=sync_s,
+              sync_share=float(np.sum(sync_s) / np.sum(step_s)),
+              gather_share=float(np.sum(gather_s) / np.sum(step_s)),
+              step_s_2x1=ref["step_s"],
+              peak_mem_gib_by_rank=[rk["peak_mem_gib"] for rk in ranks],
+              served_b1_launches=n["conv3x3_stats"], b1_launches=0,
+              spawn_wall_s=wall)
+
+
+def dryrun_phase() -> dict:
+    """``[dryrun_multichip]``: ``graft_entry.dryrun_multichip(4)``, the
+    ranks sharing the card over gloo (one a card over NCCL on a host with
+    four): its line, its wall and the ranks' B1 launches (Jacobi at base 8,
+    C = 64). Returns the launches by rank."""
+    from text2video_tpu_torch import graft_entry
+
+    torch.cuda.empty_cache()
+    out, wall = timed(lambda: graft_entry.dryrun_multichip(4))
+    ranks = out["ranks"]
+    check([(rk["data_rank"], rk["model_rank"]) for rk in ranks]
+          == [divmod(r, 2) for r in range(4)], f"dryrun grid: {ranks}")
+    check(all(rk["launches"]["conv3x3_stats"] > 0 for rk in ranks),
+          f"dryrun_multichip: B1 not launched {[rk['launches'] for rk in ranks]}")
+    check(all(rk["g_loss"] == ranks[0]["g_loss"] for rk in ranks),
+          "dryrun_multichip: the ranks' losses differ")
+    phase("dryrun_multichip", wall_s=wall, line=json.dumps(out["line"]),
+          devices=[rk["device"] for rk in ranks],
+          backend=ranks[0]["backend"],
+          b1_launches_by_rank=[rk["launches"]["conv3x3_stats"]
+                               for rk in ranks])
+    return {f"dryrun_multichip_rank{r}": rk["launches"]
+            for r, rk in enumerate(ranks)}
+
+
+def entry_phase() -> dict:
+    """``[entry]``: one call of ``graft_entry.entry()``'s flagship forward
+    (512x384, base 64, 9 resblocks, bf16) on the card, 18 B1 launches
+    counted, finite outputs of the expected shapes."""
+    from text2video_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    out, wall, n = _counted(lambda: fn(*args))
+    frame, flow, mask = out
+    check(n["conv3x3_stats"] == 18 and n["synthesize_and_smooth"] == 0,
+          f"entry: launches {n}")
+    check(tuple(frame.shape) == (1, 384, 512, 3)
+          and tuple(flow.shape) == (1, 384, 512, 2)
+          and tuple(mask.shape) == (1, 384, 512, 1)
+          and all(bool(torch.isfinite(t).all()) for t in out),
+          f"entry: outputs {[tuple(t.shape) for t in out]}")
+    phase("entry", hw="512x384", base_ch=64, n_blocks=9, dtype="bf16",
+          wall_s=wall, b1_launches=n["conv3x3_stats"])
+    return {"entry": n}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
@@ -2171,9 +2472,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         train_paths, train_ref = train_phases(tmp, labels[0])
         by_path.update(train_paths)
-        # ---- 9. the mesh: data-parallel ranks of torch.distributed ----------
+        # ---- 9. the mesh: data-parallel ranks of torch.distributed, the
+        # model axis, the dry run and the flagship forward -----------------
         by_path.update(mesh_phases(tmp, data, ckpt, warm.label_maps,
                                    train_ref))
+        mesh_model_phase(tmp, train_ref["argv"], warm.label_maps,
+                         mesh_train_refs(tmp))
+        by_path.update(dryrun_phase())
+        by_path.update(entry_phase())
         torchrun_phase(tmp)
     check(all(by_path[p]["conv3x3_stats"] > 0 for p in by_path
               if not p.startswith("train_gan")),
@@ -2217,9 +2523,10 @@ def mesh_only() -> None:
     """``python3 chip_smoke.py --mesh``: the mesh phases alone, with what
     they are held against made as :func:`main` makes it (the serving
     renderer's checkpoint, the slice's 256 golden label maps, one process's
-    first ``train-gan`` steps at full width), and ``[mesh_torchrun]``. On a
-    host with several cards the phases also run over NCCL across two of
-    them (``python3 chip_smoke.py --mesh`` on a four-card host)."""
+    first ``train-gan`` steps at full width), ``[mesh_model]`` and
+    ``[mesh_torchrun]``. On a host with several cards the phases also run
+    over NCCL across two of them, and ``[mesh_model]`` across four
+    (``python3 chip_smoke.py --mesh`` on a four-card host)."""
     from text2video_tpu_torch import kernels
     from text2video_tpu_torch.checkpoints import save_renderer
     from text2video_tpu_torch.golden import (
@@ -2264,12 +2571,40 @@ def mesh_only() -> None:
         mesh_phases(tmp, data, ckpt, labels, dict(
             argv=argv, first_metrics=recs[0][1],
             step_s=[s for s, _ in recs[1:]]))
+        mesh_model_phase(tmp, argv, labels, mesh_train_refs(tmp))
         torchrun_phase(tmp)
+    phase("total", seconds=time.perf_counter() - START)
+
+
+def mesh_model_only() -> None:
+    """``python3 chip_smoke.py --mesh-model``: ``[mesh_model]`` alone, with
+    its (2, 1) reference run made here, over gloo and, on a host with four
+    cards, over NCCL one rank a card."""
+    from text2video_tpu_torch import kernels
+    from text2video_tpu_torch.golden import write_training_assets
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.build()
+    kernels.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        images, keypoints = write_training_assets(
+            os.path.join(tmp, "train"), n_frames=24, canvas=(512, 384))
+        labels = np.random.RandomState(0).randint(0, 256, (8, 384, 512, 3),
+                                                  np.uint8)
+        mesh_model_phase(tmp, [
+            "train-gan", "--images", images, "--keypoints", keypoints,
+            "--width", "512", "--height", "384", "--clip-len", "8",
+            "--batch-size", "2", "--device-data"], labels)
     phase("total", seconds=time.perf_counter() - START)
 
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--mesh"]:
         mesh_only()
+    elif sys.argv[1:] == ["--mesh-model"]:
+        mesh_model_only()
     else:
         main()

@@ -67,13 +67,24 @@ def test_make_mesh_shape_and_ranks(host_out):
         assert m["is_main"] == (m["rank"] == 0)
 
 
-def test_make_mesh_model_axis_and_missing_group_raise(monkeypatch):
-    """n_model > 1 names the queued model axis; without a process group and
-    without an init method there is nothing to join."""
+def test_make_mesh_model_axis_and_missing_group_raise(monkeypatch,
+                                                      tmp_path):
+    """A (data, model) grid larger than the process group raises
+    ``ValueError`` (here a group of one process, left again after);
+    without a process group and without an init method there is nothing to
+    join."""
+    import torch.distributed as dist
+
     from text2video_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        make_mesh(n_model=2, device="cpu")
+    try:
+        with pytest.raises(ValueError, match="1 x 2 needs"):
+            make_mesh(n_data=1, n_model=2, device="cpu", backend="gloo",
+                      init_method="file://" + str(tmp_path / "store"),
+                      rank=0, world_size=1, timeout_s=60)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     monkeypatch.delenv("MASTER_ADDR", raising=False)
     with pytest.raises(RuntimeError, match="torchrun"):
         make_mesh(device="cpu")

@@ -207,17 +207,19 @@ def test_dp_checkpoint_loads_in_one_process(run, tmp_path):
 
 
 def test_train_gan_model_axis_raises(run):
-    """``--n-model 2`` (and ``train_gan(n_model=2)``) raise: the mesh's
-    model axis is not ported."""
+    """A single process asked for a model axis (``--n-model 2``,
+    ``train_gan(n_model=2)``) raises ``ValueError`` naming torchrun: the
+    axis needs several processes (``tests/test_torch_mesh_model.py`` runs
+    it over four)."""
     from text2video_tpu_torch import cli
     from text2video_tpu_torch.train.loop import train_gan
 
     images, keypoints = run["data"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main(["train-gan", "--images", images, "--keypoints", keypoints,
                   "--steps", "1", "--ckpt", "unused", "--n-model", "2"]
                  + TRAIN_ARGS)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="torchrun"):
         train_gan(None, CFG, n_model=2, device="cpu")
 
 

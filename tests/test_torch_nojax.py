@@ -42,7 +42,8 @@ SCRIPT = textwrap.dedent(
                 "tools.jacobi_quality", "tools.eval_gan",
                 "tools.eval_gan_many", "tools.make_synthetic_frames",
                 "models.discriminator",
-                "models.losses", "models.vgg"):
+                "models.losses", "models.vgg", "parallel.model_axis",
+                "graft_entry"):
         assert "text2video_tpu_torch." + sub in mods, sub
 
     from text2video_tpu_torch import pipeline

@@ -16,13 +16,14 @@ import torch
 INIT_TIMEOUT_S = 60.0  # every init and collective of a test rank
 
 
-def _mesh(rank: int, world: int, store: str):
+def _mesh(rank: int, world: int, store: str, **grid):
+    """This rank's mesh (``grid``: ``n_data``, ``n_model``)."""
     from text2video_tpu_torch.parallel import make_mesh
 
     torch.set_num_threads(1)
     return make_mesh(device="cpu", backend="gloo",
                      init_method="file://" + store, rank=rank,
-                     world_size=world, timeout_s=INIT_TIMEOUT_S)
+                     world_size=world, timeout_s=INIT_TIMEOUT_S, **grid)
 
 
 def _save(out_dir: str, case: str, rank: int, **arrays) -> None:
@@ -231,6 +232,70 @@ def train_ops(rank, world, store, in_dir, out_dir):
         argv = json.load(f)
     for run in ("dp_a", "dp_b"):
         assert cli.main(argv + ["--ckpt", os.path.join(out_dir, run)]) == 0
+
+
+def model_ops(rank, world, store, in_dir, out_dir):
+    """The mesh's model axis in four ranks: two steps at (2, 2) and two at
+    (1, 2) from the converted JAX state in ``in_dir/init`` on
+    ``in_dir/batch.npz`` (each saved whole after every step), then
+    ``train-gan --n-model 2`` through the CLI from scratch and resumed from
+    the one-process directory ``out_dir/resume``."""
+    import sys
+
+    from text2video_tpu_torch import checkpoints, cli
+    from text2video_tpu_torch.parallel import make_mesh, model_axis
+    from text2video_tpu_torch.parallel import mesh as meshes
+    from text2video_tpu_torch.train import trainer
+
+    mesh = _mesh(rank, world, store, n_data=2, n_model=2)
+    _json(out_dir, "grid", rank, dict(
+        shape=mesh.shape, rank=mesh.rank, model_rank=mesh.model_rank,
+        is_main=mesh.is_main, backend=mesh.backend))
+    with open(os.path.join(in_dir, "cfg.json")) as f:
+        cfg = trainer.TrainConfig(**json.load(f), dtype=torch.float32)
+    batch = {k: torch.from_numpy(v)
+             for k, v in np.load(os.path.join(in_dir, "batch.npz")).items()}
+
+    def steps(m, rows, name):
+        """Two steps on ``m`` from the init state, on ``rows`` of the
+        batch; the whole state saved after each."""
+        state = checkpoints.restore_state(
+            os.path.join(in_dir, "init"),
+            trainer.create_trainer_state(cfg, seed=1, device="cpu"))
+        wide = (meshes.shard_params(state.generator, m, state.g_opt)
+                + meshes.shard_params(state.discriminators, m, state.d_opt))
+        shards = {k: v.numpy().copy() for k, v in
+                  state.generator.state_dict().items() if k in wide}
+        step = trainer.make_train_step(cfg, mesh=m)
+        metrics, gathers = [], []
+        for _ in range(2):
+            before = model_axis.gathers
+            state, met = step(state, {k: v[rows] for k, v in batch.items()})
+            gathers.append(model_axis.gathers - before)
+            metrics.append({k: float(v) for k, v in met.items()})
+            if m.rank == 0:
+                checkpoints.save_state(os.path.join(out_dir, name), state,
+                                       cfg, mesh=m)
+        _json(out_dir, name, rank, dict(sharded=wide, metrics=metrics,
+                                        gathers=gathers))
+        _save(out_dir, name + "_shards", rank, **shards)
+
+    per = batch["labels"].shape[0] // mesh.n_data
+    steps(mesh, slice(mesh.rank * per, (mesh.rank + 1) * per), "m22")
+    # Every rank takes part in making a mesh; ranks 2 and 3 are outside.
+    mesh12 = make_mesh(n_data=1, n_model=2, device="cpu")
+    if mesh12 is not None:
+        steps(mesh12, slice(None), "m12")
+
+    with open(os.path.join(in_dir, "train_argv.json")) as f:
+        argv = json.load(f)
+    assert cli.main(argv + ["--steps", "2", "--ckpt",
+                            os.path.join(out_dir, "cli")]) == 0
+    assert cli.main(argv + ["--steps", "1", "--ckpt",
+                            os.path.join(out_dir, "resume")]) == 0
+    _json(out_dir, "loaded", rank, sorted(
+        k for k, v in sys.modules.items()
+        if v is not None and k.split(".")[0] in BLOCKED))
 
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "text2video_tpu")

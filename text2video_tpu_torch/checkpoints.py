@@ -15,7 +15,9 @@ of the ``TrainConfig``, as the JAX package writes it, and one
 discriminators' ``state_dict``s, the VGG filters where used, and both Adam
 states. A step directory is written under a temporary name and renamed, so a
 directory named ``step_*`` is always a finished save. ``load_renderer`` reads
-either kind.
+either kind. A run over the mesh's model axis saves the same format: its
+sharded kernels and their moments are gathered whole first, so its directory
+loads in one process and a one-process directory resumes under the axis.
 
 Orbax checkpoints of the JAX package are not read here:
 ``tools/orbax_to_torch.py`` (which needs JAX) converts one into this format.
@@ -33,6 +35,7 @@ import torch
 
 from text2video_tpu_torch import device as devices
 from text2video_tpu_torch.config import PersonProfile, RenderConfig
+from text2video_tpu_torch.parallel.model_axis import gather_full
 from text2video_tpu_torch.render import Renderer
 
 CONFIG_NAME = "config.json"
@@ -52,10 +55,21 @@ def _cpu(tree):
     return tree
 
 
-def save_state(ckpt_dir: str, state, cfg=None, keep_last: int = 3) -> None:
+def save_state(ckpt_dir: str, state, cfg=None, keep_last: int = 3,
+               mesh=None) -> None:
     """Save ``state`` (a ``train.trainer.TrainerState``) as
     ``step_%08d/state.pt`` and, with ``cfg`` (its ``TrainConfig``),
-    ``config.json``; keep only the newest ``keep_last`` steps."""
+    ``config.json``; keep only the newest ``keep_last`` steps.
+
+    Where the state's kernels are sharded over ``mesh``'s model axis, every
+    rank of the model group of data index 0 calls: the shards and their Adam
+    moments are gathered whole (``parallel.model_axis.gather_full``) and
+    global rank 0 alone writes them, in the format of one process."""
+    generator, g_opt = gather_full(state.generator, mesh, state.g_opt)
+    discriminators, d_opt = gather_full(state.discriminators, mesh,
+                                        state.d_opt)
+    if mesh is not None and not mesh.is_main:
+        return
     ckpt_dir = os.path.abspath(ckpt_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
     if cfg is not None:
@@ -65,11 +79,11 @@ def save_state(ckpt_dir: str, state, cfg=None, keep_last: int = 3) -> None:
             json.dump(meta, f, indent=1)
     payload = {
         "step": int(state.step),
-        "generator": _cpu(state.generator.state_dict()),
-        "discriminators": _cpu(state.discriminators.state_dict()),
+        "generator": _cpu(generator),
+        "discriminators": _cpu(discriminators),
         "vgg": None if state.vgg is None else _cpu(state.vgg.state_dict()),
-        "g_opt": _cpu(state.g_opt.state_dict()),
-        "d_opt": _cpu(state.d_opt.state_dict()),
+        "g_opt": _cpu(g_opt),
+        "d_opt": _cpu(d_opt),
     }
     final = os.path.join(ckpt_dir, f"step_{int(state.step):08d}")
     tmp = final + _TMP_MARK

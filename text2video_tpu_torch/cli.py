@@ -13,8 +13,10 @@ arguments, plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain versions), and ``audio-batch`` also takes ``--pose-device``.
 ``train-gan`` is data-parallel when several processes run it
 (``torchrun --nproc-per-node N -m text2video_tpu_torch.cli train-gan ...``:
-the mesh comes from torchrun's environment, each rank on its own card); its
-``--n-model`` above 1 raises (the mesh's model axis is not ported).
+the mesh comes from torchrun's environment, each rank on its own card); with
+``--n-model M`` the processes form an ``N / M`` x ``M`` (data, model) grid
+and the wide conv kernels shard by output channel over the model axis
+(``--nproc-per-node 4 ... --n-model 2``: a 2 x 2 grid).
 ``--gan-checkpoint`` takes the port's checkpoint formats
 (``checkpoints.py``): a renderer checkpoint or ``train-gan``'s directory.
 
@@ -662,8 +664,10 @@ def main(argv=None) -> int:
                    help="cap total paired frames (device-data datasets "
                    "must fit the device's memory)")
     p.add_argument("--n-model", type=int, default=1,
-                   help="model-axis size of the mesh; only 1 is ported "
-                   "(the data axis spans the processes torchrun starts)")
+                   help="model-axis size of the mesh: the wide conv kernels "
+                   "(>= 256 output channels) shard over this many ranks; "
+                   "the data axis takes the rest of the processes torchrun "
+                   "starts")
     _add_device(p)
     p.set_defaults(fn=cmd_train_gan)
 

@@ -118,6 +118,12 @@ class Conv(nn.Module):
             k.to(dtype).permute(3, 2, 0, 1).contiguous(), b.to(dtype)))
         # The fused op's HWIO kernel in the compute dtype.
         self._hwio = ParamCopy(lambda k: k.to(dtype).contiguous())
+        # The mesh's model axis (parallel/mesh.py::shard_params): (lo, hi,
+        # full width) when ``kernel`` holds only output channels [lo, hi),
+        # and, for the length of a step, the full kernel gathered from the
+        # other ranks (parallel/model_axis.py::gathered_kernels).
+        self.shard: Optional[Tuple[int, int, int]] = None
+        self.gathered = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """lecun-normal kernel (flax's default), zero bias."""
@@ -139,7 +145,16 @@ class Conv(nn.Module):
             self.kernel.requires_grad or self.bias.requires_grad)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.trains():
+        if self.gathered is not None:
+            # A kernel sharded over the model axis: the step's full kernel,
+            # in the compute dtype, on the graph of the local shard.
+            w = self.gathered.use(self.kernel).permute(3, 2, 0, 1)
+            b = self.bias.to(self.dtype)
+        elif self.shard is not None:
+            raise RuntimeError(
+                "a conv kernel sharded over the mesh's model axis runs only "
+                "inside parallel.model_axis.gathered_kernels")
+        elif self.trains():
             w = self.kernel.to(self.dtype).permute(3, 2, 0, 1)
             b = self.bias.to(self.dtype)
         else:

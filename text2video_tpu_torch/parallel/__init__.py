@@ -7,10 +7,13 @@ mesh is a process group: ``make_mesh`` joins (or starts) the group and says
 where this process sits on the "data" axis. Functions that take ``mesh=``
 run SPMD: every rank of the data group calls them with the same arguments,
 works on its share of the leading axis (utterances, frames or clips), and
-gets the whole result back. Only rank 0 writes files.
+gets the whole result back. Only global rank 0 writes files.
 
-The "model" axis (output-channel sharding of the wide conv kernels) is not
-ported: ``n_model > 1`` raises.
+The processes form a ("data", "model") grid (``make_mesh(n_data, n_model)``).
+The serving paths shard over "data" and replicate over "model", as the JAX
+package's do. Training also shards the wide conv kernels by output channel
+over "model" (``shard_params``, the JAX package's rule) and gathers them
+whole once a micro-batch (``model_axis``).
 """
 
 from text2video_tpu_torch.parallel.launch import spawn
@@ -21,9 +24,12 @@ from text2video_tpu_torch.parallel.mesh import (
     halo_rows,
     make_mesh,
     mean_ordered,
+    param_specs,
     replicate,
+    shard_params,
     shard_rows,
 )
 
 __all__ = ["Mesh", "make_mesh", "barrier", "shard_rows", "gather_rows",
-           "replicate", "halo_rows", "mean_ordered", "spawn"]
+           "replicate", "halo_rows", "mean_ordered", "param_specs",
+           "shard_params", "spawn"]

@@ -24,8 +24,10 @@ it with the same arguments), the pose stage smooths one utterance with its
 time axis sharded (``smooth_recursive_sharded``, byte-equal to the host
 path), the skeleton path rasterizes it frame-parallel
 (``rasterize_batch_sharded``), and ``run_audio_batch`` shards the utterance
-batch of the render (``Renderer.render_many_device``). The frontend runs on
-every rank (cheap and deterministic); only rank 0 writes files.
+batch of the render (``Renderer.render_many_device``). Each of these shards
+over the mesh's "data" axis and replicates over its "model" axis, as the JAX
+package's mesh paths do. The frontend runs on every rank (cheap and
+deterministic); only global rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -146,7 +148,7 @@ class Text2VideoPipeline:
     @property
     def writes(self) -> bool:
         """Whether this process writes the run's files: always without a
-        mesh, on rank 0 with one."""
+        mesh, on global rank 0 with one."""
         return self.mesh is None or self.mesh.is_main
 
     def _render_tracks(self, result):
@@ -346,9 +348,10 @@ class Text2VideoPipeline:
         utterance; the autoregressive GAN pass pads every utterance's
         labels (on the device) to the longest and scans them together, each
         generator step at batch len(items). With ``mesh`` (default: the
-        pipeline's), the batch axis shards over its "data" axis: each rank
-        scans len(items) / n rows, which must divide. Returns a RunResult
-        per item, in input order."""
+        pipeline's), the batch axis shards over its "data" axis and
+        replicates over its "model" axis: each rank scans its data index's
+        len(items) / n rows, which must divide; global rank 0 writes the
+        files. Returns a RunResult per item, in input order."""
         mesh = self.mesh if mesh is None else mesh
         if self.aligner is None:
             raise RuntimeError("run_audio_batch needs an EnglishAligner")

@@ -5,7 +5,8 @@ Both branches plan on the host with ``plan_pose_track``. ``device=False``
 runs the bit-exact float64 host blend and smoother; ``device=True`` runs the
 fused gather + blend + smoothing op (kernel B2 on a card) on the stage's
 torch device. With a mesh, the bit-exact smoother runs with the time axis
-sharded over the mesh's "data" axis (``smooth_recursive_sharded``).
+sharded over the mesh's "data" axis and replicated over its "model" axis
+(``smooth_recursive_sharded``), as the JAX package's mesh path does.
 """
 
 from __future__ import annotations
@@ -77,9 +78,10 @@ class PoseStage:
 
         ``mesh`` (``parallel.make_mesh``; every rank calls with the same
         timestamps): the utterance's time axis, padded to a multiple of the
-        "data" axis, is smoothed by ``smooth_recursive_sharded``, whatever
-        ``device`` says, as the JAX package's mesh path does: the smoothed
-        tracks are byte-equal to the host path's on every rank."""
+        "data" axis (replicated over "model"), is smoothed by
+        ``smooth_recursive_sharded``, whatever ``device`` says, as the JAX
+        package's mesh path does: the smoothed tracks are byte-equal to the
+        host path's on every rank."""
         plan = plan_pose_track(ts, self.pdict, self.table, self.profile)
         face, pose = synthesize_host(plan, self.table)
         if mesh is not None:

@@ -22,7 +22,9 @@ With a mesh (``parallel.make_mesh``), ``render_many`` shards the batch of
 utterances over the "data" axis, each rank scanning its rows, and
 ``render_jacobi_sharded`` spreads one utterance's timeline over it, each rank
 sweeping its block of frames after a halo of the previous sweep's frames from
-the rank before it.
+the rank before it. Over a mesh with a "model" axis both shard over "data"
+and replicate over "model", as the JAX package's serving paths do: the ranks
+of one model group render the same rows with whole weights.
 """
 
 from __future__ import annotations
@@ -331,10 +333,11 @@ class Renderer:
     def render_jacobi_sharded(self, labels_u8: np.ndarray, mesh,
                               sweeps: int = 3) -> np.ndarray:
         """:meth:`render_jacobi` with the timeline spread over ``mesh``'s
-        "data" axis: every rank calls with the same [T, H, W, 3] uint8 host
-        labels and gets all [min(T, max_frames), H', W', 3] uint8 frames.
-        Each rank uploads, sweeps and quantizes only its block; the blocks
-        are gathered as uint8."""
+        "data" axis (replicated over its "model" axis): every rank calls with
+        the same [T, H, W, 3] uint8 host labels and gets all [min(T,
+        max_frames), H', W', 3] uint8 frames. Each rank uploads, sweeps and
+        quantizes only its data index's block; the blocks are gathered as
+        uint8."""
         t = min(labels_u8.shape[0], self.config.max_frames)
         block = self._jacobi_block(torch.as_tensor(labels_u8[:t]), sweeps,
                                    mesh)
@@ -583,9 +586,10 @@ class Renderer:
     def render_many(self, labels_u8: np.ndarray, mesh=None) -> np.ndarray:
         """[B, T, H, W, 3] uint8 host labels -> [B, T, H', W', 3] uint8
         frames: the utterances share one scan, each generator step at
-        batch B. With ``mesh`` the batch axis shards over its "data" axis:
-        every rank calls with the same labels, uploads and scans its B / n
-        rows (B must divide), and gets every row back."""
+        batch B. With ``mesh`` the batch axis shards over its "data" axis
+        and replicates over its "model" axis: every rank calls with the
+        same labels, uploads and scans its data index's B / n rows (B must
+        divide), and gets every row back."""
         rows = self._mesh_rows(labels_u8.shape[0], mesh)
         return self._scan_rows(
             torch.as_tensor(labels_u8[rows], device=self.device), mesh)

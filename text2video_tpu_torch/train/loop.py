@@ -13,7 +13,11 @@ run is data-parallel over a mesh's "data" axis, as the JAX package shards its
 batch: every rank draws the same global batch from the seeded sampler (and the
 same augmentation draws), keeps its rows, and the step averages the gradients
 over the ranks in a fixed order (``train/trainer.py``), so every rank holds the
-same weights. Rank 0 logs, saves checkpoints and snapshots; every rank resumes.
+same weights. With ``n_model > 1`` the processes form a (data, model) grid and
+the wide conv kernels, with their Adam moments, are held as output-channel
+shards over the model axis, as the JAX package's ``--n-model`` shards them.
+Global rank 0 logs, saves checkpoints (whole tensors, gathered) and
+snapshots; every rank resumes.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch.distributed as dist
 from text2video_tpu_torch import checkpoints as ckpt
 from text2video_tpu_torch import device as devices
 from text2video_tpu_torch.parallel import mesh as meshes
+from text2video_tpu_torch.parallel import model_axis
 from text2video_tpu_torch.train import augment as aug
 from text2video_tpu_torch.train import trainer
 from text2video_tpu_torch.train.data import PoseClipDataset
@@ -134,7 +139,7 @@ def _data_mesh(batch_size: int, n_data: Optional[int], n_model: int, device,
     mesh = meshes.make_mesh(n_data=n_data, n_model=n_model, device=device)
     if mesh is None:
         log_fn(f"rank {dist.get_rank()} of {world} is outside the "
-               f"{n_data}-way data mesh; leaving")
+               f"{n_data} x {n_model} mesh; leaving")
     return mesh
 
 
@@ -176,25 +181,26 @@ def train_gan(
     ``sample_every`` writes [real | fake | label] strips beside the
     checkpoints. ``stall_timeout > 0`` arms a :class:`_StallWatchdog`.
 
-    Data parallelism: when this process is one of several
-    (:func:`distributed`: torchrun, or a process group already up), the run
-    shards its batch over a mesh's "data" axis (``n_data`` ranks, by default
-    the largest divisor of ``batch_size`` that fits the processes;
-    ``batch_size`` must divide). A process outside the mesh logs and
-    returns None. ``n_model > 1`` raises ``NotImplementedError`` (the model
-    axis is not ported). A single process trains alone, as before.
+    The mesh: when this process is one of several (:func:`distributed`:
+    torchrun, or a process group already up), the processes form an
+    ``n_data`` x ``n_model`` grid (``n_data`` by default the largest divisor
+    of ``batch_size`` that fits the processes over ``n_model``;
+    ``batch_size`` must divide). The batch shards over the "data" axis; over
+    the "model" axis the wide conv kernels and their Adam moments are kept
+    as output-channel shards (``parallel.mesh.shard_params``) and gathered
+    whole once a micro-batch. Every rank starts from global rank 0's whole
+    weights (fresh or resumed), then shards. A process outside the grid
+    logs and returns None. A single process trains alone, as before;
+    ``n_data`` or ``n_model`` above 1 there raises ``ValueError``.
     """
-    if n_model != 1:
-        raise NotImplementedError(
-            f"n_model={n_model}: {meshes.MODEL_AXIS_TODO}")
     mesh = None
     if distributed():
         mesh = _data_mesh(batch_size, n_data, n_model, device, log_fn)
         if mesh is None:
             return None
-    elif n_data not in (None, 1):
-        raise ValueError(f"n_data={n_data} needs several processes "
-                         "(torchrun)")
+    elif n_data not in (None, 1) or n_model != 1:
+        raise ValueError(f"n_data={n_data}, n_model={n_model} needs several "
+                         "processes (torchrun)")
     if mesh is not None:
         if batch_size % mesh.n_data:
             raise ValueError(f"batch {batch_size} does not divide over the "
@@ -207,6 +213,9 @@ def train_gan(
     else:
         rows = slice(None)
     writes = mesh is None or mesh.is_main
+    # The ranks of data index 0 gather the model axis's shards for a save
+    # or a snapshot; global rank 0 writes.
+    saves = mesh is None or mesh.rank == 0
     device = devices.resolve(device)
     w, h = dataset.canvas
     cfg = cfg or TrainConfig(height=h, width=w)
@@ -223,13 +232,18 @@ def train_gan(
     if mesh is None:
         step_fn = make_train_step(cfg)
     else:
-        # Every rank starts from rank 0's weights (they are equal already:
-        # one seed, or one checkpoint).
+        # Every rank starts from global rank 0's weights (they are equal
+        # already: one seed, or one checkpoint), then keeps its shards.
         meshes.replicate([*state.generator.parameters(),
                           *state.discriminators.parameters()], mesh)
+        wide = (meshes.shard_params(state.generator, mesh, state.g_opt)
+                + meshes.shard_params(state.discriminators, mesh,
+                                      state.d_opt))
         step_fn = make_train_step(cfg, mesh=mesh)
         log_fn(f"data-parallel over {mesh.n_data} ranks ({mesh.backend}), "
-               f"{per} of each batch's {batch_size} clips a rank")
+               f"{per} of each batch's {batch_size} clips a rank"
+               + (f"; {len(wide)} wide conv kernels sharded over "
+                  f"{mesh.n_model} model ranks" if mesh.n_model > 1 else ""))
 
     augment = device_data and (
         cfg.aug_jitter_px > 0 or cfg.aug_drop_prob > 0
@@ -266,17 +280,20 @@ def train_gan(
     # one fixed clip through the current generator, written as a
     # [real | fake | label] strip beside the checkpoints.
     sample_batch = None
-    if sample_every > 0 and ckpt_dir is not None and writes:
+    if sample_every > 0 and ckpt_dir is not None and saves:
         sample_batch = dataset.batch(np.random.RandomState(123), 1)
 
     def save_snapshot(step_num: int) -> None:
         import cv2
 
-        with torch.no_grad():
-            fakes, _ = trainer._generate_clip(
-                state.generator, cfg,
-                torch.from_numpy(sample_batch["labels"]).to(device),
-                torch.from_numpy(sample_batch["reals"]).to(device))
+        with model_axis.gathered_kernels([state.generator], mesh):
+            if not writes:
+                return
+            with torch.no_grad():
+                fakes, _ = trainer._generate_clip(
+                    state.generator, cfg,
+                    torch.from_numpy(sample_batch["labels"]).to(device),
+                    torch.from_numpy(sample_batch["reals"]).to(device))
         fakes = fakes.cpu().numpy()
 
         def to_u8(x):
@@ -339,11 +356,11 @@ def train_gan(
         if sample_batch is not None and (i + 1) % sample_every == 0:
             save_snapshot(state.step)
         if ckpt_dir is not None and (i + 1) % save_every == 0:
-            if writes:
-                ckpt.save_state(ckpt_dir, state, cfg)
+            if saves:
+                ckpt.save_state(ckpt_dir, state, cfg, mesh=mesh)
             last_saved = state.step
-    if ckpt_dir is not None and state.step != last_saved and writes:
-        ckpt.save_state(ckpt_dir, state, cfg)
+    if ckpt_dir is not None and state.step != last_saved and saves:
+        ckpt.save_state(ckpt_dir, state, cfg, mesh=mesh)
     if mesh is not None:
         # No rank leaves before rank 0's checkpoint is on disk: a run that
         # resumes from it right after must find it on every rank.

@@ -26,7 +26,11 @@ takes its rows of the global batch; before the optimizer steps, the
 gradients and metrics are averaged over the ranks in rank order
 (``parallel.mesh.mean_ordered``), so every rank applies the same update bits
 and the averaged gradient is the global batch's, as the JAX package's
-sharded step computes it.
+sharded step computes it. Under a "model" axis the wide conv kernels are
+held as output-channel shards (``parallel.mesh.shard_params``): each
+micro-batch gathers them whole once (``parallel.model_axis``), the ranks of
+a model group run the same rows, and each averages and updates only its
+shards.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from text2video_tpu_torch.models.discriminator import (
     face_crop,
 )
 from text2video_tpu_torch.models.generator import CompositeGenerator
+from text2video_tpu_torch.parallel import model_axis
 from text2video_tpu_torch.parallel.mesh import mean_ordered
 
 METRICS = ("g_loss", "g_adv", "g_fm", "g_vgg", "g_flow", "g_mouth_l1",
@@ -310,8 +315,18 @@ def make_train_step(cfg: TrainConfig, mesh=None) -> Step:
     ``.grad`` holds the gradient that the update used.
 
     With ``mesh``, ``batch`` is this rank's rows of the global batch (an
-    equal share on every rank) and the update uses the mean over the
-    ranks of their gradients; ``metrics`` are the means too."""
+    equal share on every rank; the ranks of one model group get the same
+    rows) and the update uses the mean over the data axis of the ranks'
+    gradients; ``metrics`` are the means too. Where the state's wide
+    kernels are sharded over the mesh's model axis
+    (``parallel.mesh.shard_params`` with the optimizers), each micro-batch
+    gathers them whole once, before the forward and outside the remat
+    regions, and checks that it gathered each once; the gradients, their
+    mean and Adam's update are the shards'. Adam is elementwise, so a
+    shard's update is the slice of the whole kernel's, and the step computes
+    the bits of a step without the model axis. (The JAX package replicates
+    the optimizer state over "model"; keeping the moments sharded gives the
+    same numbers.)"""
     adversarial = cfg.lambda_adv > 0.0
 
     def apply_discriminators(discs, labels_f, frames, frames_f, centers_f):
@@ -443,18 +458,29 @@ def make_train_step(cfg: TrainConfig, mesh=None) -> Step:
         micro = b // accum
         g_total = d_total = None
         metrics: Dict[str, torch.Tensor] = {}
+        # The model axis: the step's modules' sharded kernels, each gathered
+        # once a micro-batch.
+        nets = [state.generator] + ([state.discriminators] if adversarial
+                                    else [])
+        wide = len(model_axis.sharded_convs(nets))
+        gathered = model_axis.gathers
         with torch.enable_grad():
             for i in range(accum):
                 mb = (batch if accum == 1 else
                       {k: v[i * micro: (i + 1) * micro]
                        for k, v in batch.items()})
-                g_grads, d_grads, m = grads_once(state, mb, g_params,
-                                                 d_params)
+                with model_axis.gathered_kernels(nets, mesh):
+                    g_grads, d_grads, m = grads_once(state, mb, g_params,
+                                                     d_params)
                 g_total = accumulate(g_total, g_grads, g_params)
                 if d_grads is not None:
                     d_total = accumulate(d_total, d_grads, d_params)
                 metrics = {k: v if not metrics else metrics[k] + v
                            for k, v in m.items()}
+        if model_axis.gathers - gathered != accum * wide:
+            raise RuntimeError(
+                f"{model_axis.gathers - gathered} kernel gathers in a step "
+                f"of {accum} micro-batches over {wide} sharded kernels")
         if accum > 1:
             metrics = {k: v / accum for k, v in metrics.items()}
         if mesh is not None and mesh.n_data > 1:
