@@ -15,7 +15,11 @@ assembled from them on the host by the native codec); the wire's
 coefficients are held against the CPU's encode of the same frames (with
 TF32 switched on), and the slice runs under each wire in turns (``[wire]``).
 The fadg0 keypoints are also drawn on a 64x64 canvas, card against CPU
-(``[raster_small]``). Then it runs
+(``[raster_small]``), and the 22 golden frames of
+``tests/goldens/fadg0_Shehadyour`` by the port's bit-exact host drawing,
+pixel-equal to the PNGs the original pipeline drew, with the card's labels
+of the same keypoints held against it by SSIM (``[raster_host]``). Then it
+runs
 the user's entry points the way a user calls them: first the port's bench
 (``cli.main(["bench", ...])`` in the modes ``gen``, ``jacobi --sweeps 3``
 and ``e2e``, each line checked and its kernel launches counted; ``gen``
@@ -40,7 +44,11 @@ zoom and crop) made on the card and on the CPU from the same draws,
 ``train-gan --device-data --aug-*``, ``tools.eval_gan`` and
 ``tools.eval_gan_many`` on snapshots of the directory it trained (rendered
 through B1, the weights swapped under one renderer), and
-``tools.make_synthetic_frames`` feeding a dataset. Last, the mesh: two
+``tools.make_synthetic_frames`` feeding a dataset; and the mouth-selected
+recipe end to end (``tools.mouth_recipe``: avatar frames, recon, three
+adversarial segments each resuming the last, ``eval_gan_many`` on the
+holdout, the selection, the winner's train-split ``eval_gan`` and a ``tts``
+clip from it; the train stages in subprocesses). Last, the mesh: two
 ranks of ``torch.distributed`` share the card over gloo (and, on a host with
 two cards or more, run over NCCL across them), started by the port's
 ``parallel.spawn`` with JAX and the JAX package unimportable in each: the
@@ -55,7 +63,9 @@ the mesh's model axis: ``train-gan --n-model 2`` in four ranks on a 2 x 2
 (data, model) grid, its wide conv kernels held as output-channel shards and
 gathered once a micro-batch, bit-equal to the two-rank (2, 1) run (losses,
 whole weights and Adam moments), its checkpoint restored in one process and
-served; ``graft_entry.dryrun_multichip(4)`` (a train step over (2, 2),
+served, and then, in the same four ranks, the serving paths above on the
+(2, 2) grid, bit-equal to the two ranks' frames;
+``graft_entry.dryrun_multichip(4)`` (a train step over (2, 2),
 Jacobi, the smoother and the rasterizer over four ranks); one call of
 ``graft_entry.entry()``'s flagship forward through B1; and ``train-gan``
 under ``torchrun --nproc-per-node 1`` against a plain process (bit-equal
@@ -86,7 +96,6 @@ import io
 import json
 import os
 import re
-import shutil
 import signal
 import sys
 import tempfile
@@ -1260,26 +1269,6 @@ def unit_to_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.round((x.cpu() + 1.0) * 127.5).to(torch.uint8)
 
 
-def snapshot(train_dir: str, dst: str) -> int:
-    """The newest step of the training directory ``train_dir`` and its
-    ``config.json`` as a training directory ``dst`` of its own (the state
-    file is linked, not copied). Returns the step."""
-    from text2video_tpu_torch.checkpoints import (
-        CONFIG_NAME,
-        STATE_NAME,
-        latest_step_dir,
-    )
-
-    step_dir = latest_step_dir(train_dir)
-    name = os.path.basename(step_dir)
-    os.makedirs(os.path.join(dst, name))
-    os.link(os.path.join(step_dir, STATE_NAME),
-            os.path.join(dst, name, STATE_NAME))
-    shutil.copyfile(os.path.join(train_dir, CONFIG_NAME),
-                    os.path.join(dst, CONFIG_NAME))
-    return int(name.split("_")[1])
-
-
 AUG_FLAGS = ["--aug-jitter", "1.5", "--aug-drop", "0.05", "--aug-face-drop",
              "0.1", "--aug-scale-crop"]
 AUG_KW = dict(jitter_px=1.5, drop_prob=0.05, face_drop_prob=0.1)
@@ -1301,6 +1290,7 @@ def workflow_phases(tmp: str, images: str, keypoints: str, train_argv,
         eval_gan_many,
         make_synthetic_frames,
     )
+    from text2video_tpu_torch.tools.mouth_recipe import snapshot
     from text2video_tpu_torch.train import augment
     from text2video_tpu_torch.train.data import PoseClipDataset
 
@@ -1490,6 +1480,152 @@ def workflow_phases(tmp: str, images: str, keypoints: str, train_argv,
     return by_path
 
 
+# ---- the mouth-selected training recipe, end to end --------------------------
+
+RECIPE_ARGS = ["--width", "512", "--height", "384", "--source-width", "512",
+               "--source-height", "384", "--recon-steps", "2", "--segments",
+               "3", "--segment-steps", "1", "--eval-clips", "1",
+               "--eval-clip-len", "8", "--person", "fadg0", "--clip-text",
+               "She had your dark suit", "--pose-device", "device",
+               "--timeout", "600"]
+
+
+def recipe_phase(tmp: str, data: str) -> dict:
+    """``[recipe]``: ``tools.mouth_recipe`` at the flagship generator's full
+    width (512x384, base 64, 9 resblocks, bf16; batch 2 x clip 8, device
+    data) on keypoints from ``golden.write_training_assets(n_frames=40)``:
+    the stage-0 frames drawn from them, recon to step 2, three adversarial
+    segments of one step, ``eval_gan_many --clips 1 --clip-len 8`` on the
+    holdout split, the selection, the winner's train-split ``eval_gan`` and
+    its ``tts "She had your dark suit" fadg0`` clip on the golden data
+    directory ``data``. The train stages run as the recipe runs them, in
+    subprocesses; the others run in this process, their kernel launches
+    counted. Gates: each train stage resumes the step the previous one
+    reached; the selection is :func:`select_checkpoint`'s on the rows; the
+    mp4 holds its frames; B1 runs in the evaluations and the clip, B2 once
+    in the clip. Returns the launches by path."""
+    import importlib
+
+    from text2video_tpu_torch.golden import write_training_assets
+    from text2video_tpu_torch.tools import mouth_recipe
+
+    _, keypoints = write_training_assets(os.path.join(tmp, "recipe_data"),
+                                         n_frames=40)
+    work = os.path.join(tmp, "recipe")
+    counted = {}
+
+    def runner(module, argv, stdout_path, timeout):
+        if module == mouth_recipe.CLI and argv[0] == "train-gan":
+            return mouth_recipe.run_module(module, argv, stdout_path,
+                                           timeout)
+        torch.cuda.empty_cache()
+        lines, wall, n = run_main(importlib.import_module(module).main, argv)
+        with open(stdout_path, "a") as f:
+            f.write("".join(line + "\n" for line in lines))
+        name = module.rsplit(".", 1)[1]
+        counted["clip" if name == "cli" else name] = dict(
+            wall_s=wall, launches=n, last=lines[-1] if lines else "")
+        return 0
+
+    args = mouth_recipe.parser().parse_args(
+        ["--keypoints", keypoints, "--work", work, "--data-dir", data,
+         *RECIPE_ARGS])
+    summary, wall = timed(lambda: mouth_recipe.run_recipe(args, runner))
+    stages = summary["stages"]
+    check([st["stage"] for st in stages] == [0, 1, 2, 2, 2, 3, 4, 5],
+          f"recipe stages {stages}")
+    train = stages[1:5]
+    steps = [(st["from_step"], st["step"]) for st in train]
+    check(steps == [(0, 2), (2, 3), (3, 4), (4, 5)],
+          f"recipe: the train stages went from and to {steps}")
+    for k, st in enumerate(train[1:], start=1):
+        with open(os.path.join(work, "logs", f"train{k}.log")) as f:
+            check(f"resumed from step {st['from_step']}" in f.read(),
+                  f"recipe: train stage {k} did not resume its directory")
+    rows = summary["rows"]
+    check(len(rows) == 4 and all(np.isfinite(r[k]) for r in rows
+                                 for k in EVAL_KEYS),
+          f"recipe: evaluation rows {rows}")
+    pick = mouth_recipe.select_checkpoint(rows)
+    check(summary["selected"] == rows[pick]["ckpt"],
+          f"recipe selected {summary['selected']}, the rule {pick}")
+    clip = json.loads(counted["clip"]["last"])
+    check_mp4(clip, (384, 512))
+    many, one, tts = (counted[k]["launches"] for k in (
+        "eval_gan_many", "eval_gan", "clip"))
+    check(many == {"conv3x3_stats": 4 * 18 * 8, "synthesize_and_smooth": 0}
+          and one == {"conv3x3_stats": 18 * 8, "synthesize_and_smooth": 0},
+          f"recipe evaluations launched {many}, {one}")
+    check_launches("recipe clip", tts, clip["frames"], 1)
+    phase("recipe", hw="512x384", base_ch=64, n_blocks=9, dtype="bf16",
+          batch=2, clip_len=8, wall_s=wall,
+          stage_seconds=[round(st["seconds"], 3) for st in stages],
+          steps_reached=[st["step"] for st in train],
+          train_runs=[len(st["runs"]) for st in train],
+          rows=json.dumps([{k: r[k] for k in ("psnr_db", "mouth_psnr_db")}
+                           | {"ckpt": os.path.basename(r["ckpt"])}
+                           for r in rows]),
+          selected=os.path.basename(summary["selected"]),
+          train_eval=json.dumps(summary["train_eval"]),
+          clip_frames=clip["frames"],
+          b1_launches=dict(eval_gan_many=many["conv3x3_stats"],
+                           eval_gan=one["conv3x3_stats"],
+                           clip=tts["conv3x3_stats"]),
+          b2_launches=tts["synthesize_and_smooth"],
+          in_process_wall_s={k: v["wall_s"] for k, v in counted.items()})
+    return {"recipe_eval_gan_many": many, "recipe_eval_gan": one,
+            "recipe_clip": tts}
+
+
+# ---- the host rasterizer: the golden PNGs, and the card against it -----------
+
+
+def raster_host_phase() -> None:
+    """``[raster_host]``: the port's bit-exact host drawing
+    (``rasterize_frame_host``) of the 22 golden frames of
+    ``tests/goldens/fadg0_Shehadyour`` (raw and smoothed poses), pixel-equal
+    to the PNGs the original pipeline drew, and the card's device labels of
+    the same keypoints (``rasterize_batch``, ``device="cuda"``) at
+    whole-image SSIM >= 0.96 against it, frame by frame; host ms a frame."""
+    import cv2
+
+    from text2video_tpu_torch.io.openpose import load_keypoint_frame
+    from text2video_tpu_torch.ops.rasterize import (
+        SSIM_MIN,
+        rasterize_batch,
+        rasterize_frame_host,
+        whole_ssim,
+    )
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "goldens", "fadg0_Shehadyour")
+    kfs, goldens = [], []
+    for sub_json, sub_png in (("pose", "png"), ("pose_smooth", "png_smooth")):
+        for name in sorted(os.listdir(os.path.join(root, sub_png))):
+            stem = os.path.splitext(name)[0]
+            kfs.append(load_keypoint_frame(
+                os.path.join(root, sub_json, stem + ".json")))
+            goldens.append(cv2.imread(os.path.join(root, sub_png, name)))
+    size = (512, 384)
+    host, seconds = timed(lambda: [rasterize_frame_host(
+        k.face, k.pose, k.hand_l, k.hand_r, size) for k in kfs])
+    unequal = [i for i, (h, g) in enumerate(zip(host, goldens))
+               if not np.array_equal(h, g)]
+    check(len(kfs) == 22 and not unequal,
+          f"raster_host: frames {unequal} of {len(kfs)} differ from the "
+          "golden PNGs")
+    card = rasterize_batch(*[np.stack([getattr(k, a) for k in kfs]) for a in
+                             ("face", "pose", "hand_l", "hand_r")],
+                           size, chunk=len(kfs), device="cuda")
+    ssim = [whole_ssim(c, h) for c, h in zip(card, host)]
+    check(min(ssim) >= SSIM_MIN,
+          f"raster_host: card labels against the host drawing, SSIM {ssim}")
+    phase("raster_host", frames=len(kfs), hw="512x384",
+          pixel_equal_golden_png=True, host_ms_per_frame=seconds
+          / len(kfs) * 1e3, card_ssim_min=min(ssim),
+          card_ssim_mean=float(np.mean(ssim)), ssim_bound=SSIM_MIN)
+
+
 # ---- the mesh: ranks of torch.distributed, two on the one card (gloo) -------
 
 MESH_BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "text2video_tpu")
@@ -1519,48 +1655,54 @@ def _counted(fn):
                        "synthesize_and_smooth": fused_pose.launches}
 
 
-def mesh_rank(rank: int, world: int, spec_path: str) -> None:
-    """One rank of :func:`mesh_phases` (started by ``parallel.spawn`` with
-    JAX and the JAX package unimportable): joins the group of
-    ``spec["backend"]`` through a ``file://`` store, runs the phases named in
-    the spec through the port's mesh APIs, each counted, and writes
-    ``rank<r>.json`` (rank 0 also the frames, labels and tracks) to
-    ``spec["out"]``."""
-    from text2video_tpu_torch import cli, pipeline
+def serve_rank(mesh, spec: dict) -> dict:
+    """The serving paths of one rank of ``mesh`` (sharded over its "data"
+    axis, replicated over its "model" axis), each counted: Jacobi over the
+    timeline of ``spec["labels"]`` with the renderer checkpoint
+    ``spec["ckpt"]``, ``render_many`` of four 64-frame clips (one warm-up
+    each), and ``Text2VideoPipeline(mesh=)`` on the skeleton path (its mp4
+    under ``spec["pose_out"]``). Global rank 0 saves the frames, labels and
+    tracks to ``spec["out"]``. Returns each path's wall, launches and
+    digest."""
+    from text2video_tpu_torch import pipeline
     from text2video_tpu_torch.checkpoints import load_renderer
     from text2video_tpu_torch.config import PipelineConfig, get_profile
     from text2video_tpu_torch.golden import golden_pose_inputs
-    from text2video_tpu_torch.parallel import make_mesh
-    from text2video_tpu_torch.train import loop, trainer
+    from text2video_tpu_torch.parallel import barrier
 
-    with open(spec_path) as f:
-        spec = json.load(f)
-    mesh = make_mesh(device="cuda", backend=spec["backend"],
-                     init_method="file://" + spec["store"], rank=rank,
-                     world_size=world)
-    out = spec["out"]
-    res = dict(device=str(mesh.device), backend=mesh.backend)
+    res = {}
     profile = get_profile("fadg0", data_dir=spec["data"])
     labels = np.load(spec["labels"])  # [256, 384, 512, 3] uint8
 
     def keep(name, **arrays):
         if mesh.is_main:
-            np.savez(os.path.join(out, name), **arrays)
+            np.savez(os.path.join(spec["out"], name), **arrays)
 
-    jac = load_renderer(spec["ckpt"], profile, decode_mode="jacobi",
-                        jacobi_sweeps=JACOBI_SWEEPS)
-    # Warm: one bucket a rank, one sweep.
-    jac.render_jacobi_sharded(labels[:CHUNK * world], mesh, sweeps=1)
-    frames, wall, n = _counted(lambda: jac.render_jacobi_sharded(
-        labels, mesh, sweeps=JACOBI_SWEEPS))
+    def jacobi():
+        jac = load_renderer(spec["ckpt"], profile, decode_mode="jacobi",
+                            jacobi_sweeps=JACOBI_SWEEPS)
+        # Warm: one bucket a data index, one sweep.
+        jac.render_jacobi_sharded(labels[:CHUNK * mesh.n_data], mesh,
+                                  sweeps=1)
+        out = _counted(lambda: jac.render_jacobi_sharded(
+            labels, mesh, sweeps=JACOBI_SWEEPS))
+        del jac
+        torch.cuda.empty_cache()
+        return out
+
+    # A batch-64 sweep peaks at ~16 GiB a rank: the model ranks of a data
+    # index (four ranks on one card) take turns, each turn a data group.
+    for turn in range(mesh.n_model):
+        if turn == mesh.model_rank:
+            frames, wall, n = jacobi()
+        barrier(mesh)
     res["jacobi"] = dict(wall_s=wall, launches=n, sha=_sha(frames))
     keep("jacobi.npz", frames=frames)
-    del jac, frames
-    torch.cuda.empty_cache()
+    del frames
 
     scan = load_renderer(spec["ckpt"], profile)
-    rows = labels[:2 * world * CHUNK].reshape(2 * world, CHUNK,
-                                              *labels.shape[1:])
+    rows = labels[:2 * mesh.n_data * CHUNK].reshape(
+        2 * mesh.n_data, CHUNK, *labels.shape[1:])
     scan.render_many(rows[:, :8], mesh=mesh)  # warm: batch 2, 8 steps
     frames, wall, n = _counted(lambda: scan.render_many(rows, mesh=mesh))
     res["render_many"] = dict(wall_s=wall, launches=n, sha=_sha(frames))
@@ -1589,6 +1731,28 @@ def mesh_rank(rank: int, world: int, spec_path: str) -> None:
                                         tracks.pose_smooth], axis=1)))
     keep("pose_raster.npz", labels=run.label_maps,
          face=tracks.face_smooth, pose=tracks.pose_smooth)
+    return res
+
+
+def mesh_rank(rank: int, world: int, spec_path: str) -> None:
+    """One rank of :func:`mesh_phases` (started by ``parallel.spawn`` with
+    JAX and the JAX package unimportable): joins the group of
+    ``spec["backend"]`` through a ``file://`` store, runs
+    :func:`serve_rank` and ``train-gan`` through the port's mesh APIs, each
+    counted, and writes ``rank<r>.json`` (rank 0 also the frames, labels and
+    tracks) to ``spec["out"]``."""
+    from text2video_tpu_torch import cli
+    from text2video_tpu_torch.parallel import make_mesh
+    from text2video_tpu_torch.train import loop, trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    mesh = make_mesh(device="cuda", backend=spec["backend"],
+                     init_method="file://" + spec["store"], rank=rank,
+                     world_size=world)
+    out = spec["out"]
+    res = dict(device=str(mesh.device), backend=mesh.backend,
+               **serve_rank(mesh, spec))
 
     # train-gan through the CLI: the group is up, so it trains over it.
     records, sync_s = [], []
@@ -1907,14 +2071,16 @@ def grid_rank(rank: int, world: int, spec_path: str) -> None:
     """One rank of :func:`mesh_model_phase` (started by ``parallel.spawn``
     with JAX blocked): joins the group through a ``file://`` store, runs
     ``train-gan`` (``spec["argv"]``, with its ``--n-model``) through the
-    CLI, and writes ``rank<r>.json``: each step's seconds, metrics, the
+    CLI, then, given ``spec["serve"]``, :func:`serve_rank` on the same
+    grid, and writes ``rank<r>.json``: each step's seconds, metrics, the
     gradient sync's and the kernel gather's seconds, kernels gathered; a
     rank's parameter and Adam bytes against the whole model's; the bytes a
-    micro-batch gathers; peak memory; B1 and B2 launches."""
+    micro-batch gathers; peak memory of the training; B1 and B2 launches;
+    the serving paths' walls, launches and digests."""
     import datetime
 
     from text2video_tpu_torch import cli
-    from text2video_tpu_torch.parallel import model_axis
+    from text2video_tpu_torch.parallel import make_mesh, model_axis
     from text2video_tpu_torch.train import loop, trainer
 
     with open(spec_path) as f:
@@ -1983,26 +2149,41 @@ def grid_rank(rank: int, world: int, spec_path: str) -> None:
     finally:
         trainer.mean_ordered, loop.make_train_step = mean, make
         model_axis._gather_last_axis = gather
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    served = {}
+    if spec.get("serve"):
+        # The serving paths on the same grid, in the same ranks, with the
+        # training's memory handed back first.
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = make_mesh(n_data=world // GRID_MODEL, n_model=GRID_MODEL,
+                         device="cuda")
+        served, serve_s = timed(lambda: serve_rank(mesh, spec["serve"]))
+        served["wall_s"] = serve_s
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(dict(
-            steps=records, wall_s=wall, launches=n, **sizes,
+            steps=records, wall_s=wall, launches=n, **sizes, serve=served,
             device=str(torch.device("cuda", torch.cuda.current_device())),
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            peak_mem_gib=peak_gib,
             loaded=sorted(k for k, v in sys.modules.items() if v is not None
                           and k.split(".")[0] in MESH_BLOCKED)), f)
     torch.distributed.destroy_process_group()
 
 
-def run_grid(root: str, backend: str, world: int, argv) -> list:
+def run_grid(root: str, backend: str, world: int, argv,
+             serve=None) -> list:
     """``train-gan`` (``argv``) in ``world`` :func:`grid_rank` ranks over
-    ``backend``: each rank's record."""
+    ``backend``, then the serving paths where ``serve`` (a
+    :func:`serve_rank` spec) is given: each rank's record."""
     from text2video_tpu_torch.parallel import spawn
 
     os.makedirs(root)
     spec_path = os.path.join(root, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(dict(backend=backend, store=os.path.join(root, "store"),
-                       out=root, argv=argv), f)
+                       out=root, argv=argv, serve=serve), f)
     spawn("chip_smoke:grid_rank", world, (spec_path,),
           timeout_s=MESH_TIMEOUT_S, block=MESH_BLOCKED)
     ranks = []
@@ -2017,22 +2198,81 @@ def run_grid(root: str, backend: str, world: int, argv) -> list:
 
 def mesh_train_refs(tmp: str) -> dict:
     """What ``[mesh_train]`` left for :func:`mesh_model_phase`, by backend:
-    its first run's directory and its steps' metrics, and the step seconds
-    of its second run."""
+    its first run's directory and its steps' metrics, the step seconds of
+    its second run, and the (2, 1) ranks' serving spec and directory (their
+    frames, labels and records)."""
     refs = {}
     for backend in ("gloo", "nccl"):
         out = os.path.join(tmp, "mesh", backend)
         if os.path.exists(os.path.join(out, "rank0.json")):
             with open(os.path.join(out, "rank0.json")) as f:
                 train = json.load(f)["train"]
+            with open(os.path.join(out, "spec.json")) as f:
+                spec = json.load(f)
             refs[backend] = dict(ckpt=os.path.join(out, "train", "dp_a"),
                                  metrics=train["dp_a"]["metrics"],
-                                 step_s=train["dp_b"]["step_s"][1:])
+                                 step_s=train["dp_b"]["step_s"][1:],
+                                 serve=spec, serve_out=out)
     return refs
 
 
+def grid_serve_phase(ranks: list, ref: dict, out: str, backend: str) -> dict:
+    """``[mesh_model_serve]``: the serving paths that the (2, 2) ranks ran
+    after training (``out``: their directory), held against the (2, 1) ranks
+    of ``[mesh_jacobi]``, ``[mesh_render_many]`` and ``[mesh_pose_raster]``
+    in this call (``ref["serve_out"]``, themselves bit-equal to one
+    process): Jacobi's and ``render_many``'s frames bit-equal, the same
+    digest on every rank (so the two model ranks of a data index return the
+    same bytes), B1's launches a rank those of a (2, 1) rank, the skeleton
+    pipeline's labels and tracks equal and its one mp4 written by global
+    rank 0. Returns B1's launches by path and rank."""
+    with open(os.path.join(ref["serve_out"], "rank0.json")) as f:
+        pair = json.load(f)
+    served = [rk["serve"] for rk in ranks]
+    fields, by_path = {}, {}
+    for path in ("jacobi", "render_many"):
+        got = np.load(os.path.join(out, path + ".npz"))["frames"]
+        want = np.load(os.path.join(ref["serve_out"], path + ".npz"))["frames"]
+        check(got.shape == want.shape, f"mesh_model_serve {path}: "
+              f"{got.shape} vs {want.shape}")
+        diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+        shas = sorted({sv[path]["sha"] for sv in served})
+        check(diff == 0 and shas == [pair[path]["sha"]],
+              f"mesh_model_serve {path}: differs from the (2, 1) frames by "
+              f"up to {diff}; digests {shas}")
+        launches = [sv[path]["launches"]["conv3x3_stats"] for sv in served]
+        check(launches == [pair[path]["launches"]["conv3x3_stats"]]
+              * len(served), f"mesh_model_serve {path}: B1 by rank "
+              f"{launches}")
+        fields[f"{path}_bit_equal_vs_2x1"] = True
+        fields[f"{path}_wall_s_by_rank"] = [sv[path]["wall_s"]
+                                            for sv in served]
+        fields[f"{path}_b1_launches_by_rank"] = launches
+        for r, sv in enumerate(served):
+            by_path[f"mesh_model_{path}_{backend}_rank{r}"] = sv[path][
+                "launches"]
+    pr = [sv["pose_raster"] for sv in served]
+    mp4s = sorted(os.listdir(os.path.join(out, "pose", "fadg0")))
+    check({p["sha"] for p in pr} == {pair["pose_raster"]["sha"]}
+          and {p["tracks_sha"] for p in pr}
+          == {pair["pose_raster"]["tracks_sha"]},
+          "mesh_model_serve: the skeleton pipeline's labels or tracks differ "
+          "from the (2, 1) run's")
+    check([p["files"] for p in pr] == [["mesh.mp4"]] + [[]] * (len(pr) - 1)
+          and mp4s == ["mesh.mp4"] and mp4_frame_count(
+              os.path.join(out, "pose", "fadg0", "mesh.mp4")) == N_FRAMES,
+          f"mesh_model_serve: files {[p['files'] for p in pr]}, {mp4s}")
+    phase("mesh_model_serve", backend=backend, world=len(served),
+          grid=f"{len(served) // GRID_MODEL}x{GRID_MODEL}", frames=N_FRAMES,
+          sweeps=JACOBI_SWEEPS, clips=4, **fields,
+          pose_raster_equal_vs_2x1=True,
+          files_by_rank=[p["files"] for p in pr],
+          serve_wall_s_by_rank=[sv["wall_s"] for sv in served])
+    return by_path
+
+
 def mesh_model_phase(tmp: str, train_argv, labels: np.ndarray,
-                     refs=None) -> None:
+                     refs=None) -> dict:
     """``[mesh_model]``: ``train-gan --n-model 2`` over a 2 x 2 grid of
     ranks at full width (``train_argv``: 512x384, base 64, 9 resblocks,
     bf16, batch 2 x clip 8, device data; 3 steps), held against the same
@@ -2041,9 +2281,11 @@ def mesh_model_phase(tmp: str, train_argv, labels: np.ndarray,
     not given): the losses of every step and the whole weights and Adam
     moments of the two checkpoints bit-equal, each wide kernel gathered once
     a micro-batch, and the (2, 2) directory restored in one process and
-    served through B1 (on ``labels``' first 8 maps). Four gloo ranks share
-    the one card; on a host with four cards or more, four NCCL ranks take
-    one each as well."""
+    served through B1 (on ``labels``' first 8 maps). Where ``refs`` hold
+    the (2, 1) ranks' serving (``mesh_train_refs``), the four ranks then
+    serve on the grid: :func:`grid_serve_phase`. Four gloo ranks share the
+    one card; on a host with four cards or more, four NCCL ranks take one
+    each as well. Returns B1's launches by serving path and rank."""
     from text2video_tpu_torch.bench import device_info
     from text2video_tpu_torch.checkpoints import (
         STATE_NAME,
@@ -2058,6 +2300,7 @@ def mesh_model_phase(tmp: str, train_argv, labels: np.ndarray,
                            >= GRID_WORLD else [])
     refs = dict(refs or {})
     root = os.path.join(tmp, "mesh_model")
+    by_path = {}
     for backend in backends:
         out = os.path.join(root, backend)
         if backend not in refs:
@@ -2070,11 +2313,17 @@ def mesh_model_phase(tmp: str, train_argv, labels: np.ndarray,
                 step_s=[s["step_s"] for s in ranks[0]["steps"][1:]])
         ref = refs[backend]
         ckpt = os.path.join(out, "grid_ckpt")
+        grid_out = os.path.join(out, "grid")
+        serve = None
+        if "serve" in ref:
+            serve = dict({k: ref["serve"][k] for k in ("labels", "ckpt",
+                                                       "data")},
+                         out=grid_out, pose_out=os.path.join(grid_out, "pose"))
         torch.cuda.empty_cache()  # the ranks share the card with us
         ranks, wall = timed(lambda: run_grid(
-            os.path.join(out, "grid"), backend, GRID_WORLD,
+            grid_out, backend, GRID_WORLD,
             train_argv + ["--ckpt", ckpt, "--steps", str(MESH_TRAIN_STEPS),
-                          "--n-model", str(GRID_MODEL)]))
+                          "--n-model", str(GRID_MODEL)], serve))
         metrics = [[s["metrics"] for s in rk["steps"]] for rk in ranks]
         check(all(m == metrics[0] for m in metrics),
               "mesh_model: the ranks' losses differ")
@@ -2135,6 +2384,9 @@ def mesh_model_phase(tmp: str, train_argv, labels: np.ndarray,
               peak_mem_gib_by_rank=[rk["peak_mem_gib"] for rk in ranks],
               served_b1_launches=n["conv3x3_stats"], b1_launches=0,
               spawn_wall_s=wall)
+        if serve is not None:
+            by_path.update(grid_serve_phase(ranks, ref, grid_out, backend))
+    return by_path
 
 
 def dryrun_phase() -> dict:
@@ -2403,6 +2655,7 @@ def main() -> None:
         phase("raster_small", hw="64x64", frames=8,
               label_diff_vs_cpu=int(small_diff),
               drawn_share=float((small[1] > 0).mean()))
+        raster_host_phase()
 
         # The counted run: the default streaming path into the muxer.
         fused_resblock.launches = 0
@@ -2472,12 +2725,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         train_paths, train_ref = train_phases(tmp, labels[0])
         by_path.update(train_paths)
+        by_path.update(recipe_phase(tmp, data))
         # ---- 9. the mesh: data-parallel ranks of torch.distributed, the
         # model axis, the dry run and the flagship forward -----------------
         by_path.update(mesh_phases(tmp, data, ckpt, warm.label_maps,
                                    train_ref))
-        mesh_model_phase(tmp, train_ref["argv"], warm.label_maps,
-                         mesh_train_refs(tmp))
+        by_path.update(mesh_model_phase(tmp, train_ref["argv"],
+                                        warm.label_maps,
+                                        mesh_train_refs(tmp)))
         by_path.update(dryrun_phase())
         by_path.update(entry_phase())
         torchrun_phase(tmp)
@@ -2579,7 +2834,9 @@ def mesh_only() -> None:
 def mesh_model_only() -> None:
     """``python3 chip_smoke.py --mesh-model``: ``[mesh_model]`` alone, with
     its (2, 1) reference run made here, over gloo and, on a host with four
-    cards, over NCCL one rank a card."""
+    cards, over NCCL one rank a card. It trains only: the grid's serving
+    (``[mesh_model_serve]``) is held against ``[mesh_jacobi]``'s ranks, so
+    it runs with ``--mesh`` and in the whole smoke."""
     from text2video_tpu_torch import kernels
     from text2video_tpu_torch.golden import write_training_assets
 

@@ -279,7 +279,35 @@ def render_out(tmp_path_factory, jax_renderer):
     root = tmp_path_factory.mktemp("render")
     torch.save(params_from_flax(jax_renderer.params),
                str(root / "generator.pt"))
+    _batch_inputs(root)
     return _spawn("render_ops", RENDER_WORLD, root)
+
+
+BATCH_TEXTS = ("Do they make it", "She had your dark suit")
+
+
+def _batch_inputs(root) -> None:
+    """``run_audio_batch``'s inputs for the ranks (``root/batch.json``): a
+    golden data directory, two synthesized utterances of different lengths,
+    the packaged fadg0 aligner; its native library built before the spawn."""
+    from text2video_tpu_torch.config import PACKAGED_DATA_DIR
+    from text2video_tpu_torch.frontend import native
+    from text2video_tpu_torch.frontend.audio import save_wav
+    from text2video_tpu_torch.frontend.tts import FormantTTS
+    from text2video_tpu_torch.golden import write_golden_assets
+
+    native.ensure_built()
+    data = write_golden_assets(str(root / "golden"))
+    items = []
+    for i, text in enumerate(BATCH_TEXTS):
+        wav = str(root / f"u{i}.wav")
+        save_wav(wav, FormantTTS().synthesize(text, 16000), 16000)
+        items.append((text, wav))
+    with open(root / "batch.json", "w") as f:
+        json.dump(dict(items=items, data_dir=data,
+                       model=str(PACKAGED_DATA_DIR / "english_fadg0.am"),
+                       dict=os.path.join(data, "aligner", "english", "dict")),
+                  f)
 
 
 @pytest.fixture(scope="module")
@@ -344,3 +372,37 @@ def test_jacobi_sharded_matches_jax(render_out, jax_renderer):
         np.testing.assert_allclose(got["jac8_f32"], ref32, atol=2e-5, rtol=0)
         assert got["jac8"].shape == ref8.shape == (8, 32, 32, 3)
         assert np.abs(got["jac8"].astype(int) - ref8.astype(int)).max() <= 1
+
+
+def test_run_audio_batch_mesh_equals_no_mesh(render_out, tmp_path):
+    """``run_audio_batch(mesh=)`` over two ranks, one utterance a rank,
+    against the process without a mesh (the JAX counterpart is
+    ``tests/test_pipeline_e2e.py::test_run_audio_batch_sharded``): labels
+    equal to its batch's; frames bit-equal to its run of each utterance at
+    the rank's batch size, 1 (a row depends on the batch size, ROADMAP C2);
+    every rank gets both; rank 0 alone writes the files."""
+    root = os.path.dirname(render_out)
+    with open(os.path.join(root, "batch.json")) as f:
+        items = [tuple(i) for i in json.load(f)["items"]]
+    ref = workers.audio_batch(root, str(tmp_path / "batch"))
+    singles = [workers.audio_batch(root, str(tmp_path / f"single{i}"),
+                                   items=[item])[0]
+               for i, item in enumerate(items)]
+    assert ref[0].num_frames != ref[1].num_frames  # a ragged batch
+    for r, got in enumerate(_ranks(render_out, "audio_batch", RENDER_WORLD)):
+        for i, (want, single) in enumerate(zip(ref, singles)):
+            np.testing.assert_array_equal(got[f"labels{i}"], want.label_maps)
+            np.testing.assert_array_equal(got[f"frames{i}"], single.frames)
+            assert got[f"frames{i}"].shape == (6, 64, 64, 3)
+        with open(os.path.join(render_out,
+                               f"audio_batch_rank{r}.json")) as f:
+            meta = json.load(f)
+        assert [m["name"] for m in meta] == [run.name for run in ref]
+        assert [m["frames"] for m in meta] == [run.num_frames for run in ref]
+        assert [m["files"] for m in meta] == (
+            [[os.path.basename(p) for p in run.files] for run in ref]
+            if r == 0 else [[], []])
+    written = sorted(os.listdir(os.path.join(render_out, "batch", "fadg0")))
+    assert written == sorted(os.path.basename(p) for run in ref
+                             for p in run.files)
+    assert sum(p.endswith(".mp4") for p in written) == 2

@@ -21,6 +21,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+import torch_mesh_workers as workers
 from torch_train_parity import (
     BASE,
     _batch,
@@ -102,6 +103,7 @@ def run(tmp_path_factory):
     shutil.copytree(root / "one", out / "resume")
     with open(root / "train_argv.json", "w") as f:
         json.dump(argv + TRAIN_ARGS + ["--n-model", "2"], f)
+    torch.save(_serving_weights(), root / "generator.pt")
     spawn("torch_mesh_workers:model_ops", WORLD,
           (str(root / "store"), str(root), str(out)),
           timeout_s=SPAWN_TIMEOUT_S, block=BLOCK)
@@ -109,6 +111,19 @@ def run(tmp_path_factory):
                 metrics=[{k: float(v) for k, v in m.items()}
                          for m in (m1, m2)],
                 batch=batch, out=str(out), root=str(root))
+
+
+def _serving_weights():
+    """The serving cases' tiny generator (``torch_mesh_workers.
+    tiny_renderer``): seeded, a tenth of the heads' kernel, as the JAX
+    weights of ``test_torch_mesh.py`` are scaled."""
+    from text2video_tpu_torch.render import Renderer
+
+    state = Renderer.create(seed=3, base_ch=8, n_blocks=1,
+                            dtype=torch.float32,
+                            device="cpu").generator.state_dict()
+    state["heads.kernel"] = state["heads.kernel"] * 0.1
+    return state
 
 
 def _read(out, case, rank):
@@ -207,6 +222,59 @@ def test_grid_layout(run):
         assert g["shape"] == {"data": 2, "model": 2}
         assert (g["rank"], g["model_rank"]) == divmod(r, 2)
         assert g["is_main"] == (r == 0)
+
+
+# ---- serving on the grid -------------------------------------------------------
+
+
+def test_grid_serving_bit_equal_one_process(run):
+    """Jacobi (8 frames in 2 sweeps, 7 in 3: blocks on ``time_bucket``
+    boundaries) and ``render_many`` (one and two rows a data index) on the
+    (2, 2) grid: every rank's frames are the single process's bits (rows
+    held against the same batch size, ROADMAP C2), and the two model ranks
+    of a data index return the same bytes."""
+    r = workers.tiny_renderer(run["root"])
+    clips, utt = workers.render_inputs()
+    ref = dict(jac8=r.render_jacobi(utt, sweeps=2),
+               jac7=r.render_jacobi(utt[:7], sweeps=3),
+               many1=np.stack([r.render(clips[i]) for i in range(2)]),
+               many2=np.concatenate([r.render_many(clips[i: i + 2])
+                                     for i in (0, 2)]))
+    got = [dict(np.load(os.path.join(run["out"], f"serve_rank{k}.npz")))
+           for k in range(WORLD)]
+    for k, g in enumerate(got):
+        for key, want in ref.items():
+            np.testing.assert_array_equal(g[key], want,
+                                          err_msg=f"rank {k}: {key}")
+    for d in range(2):  # global ranks 2d and 2d + 1 share data index d
+        for key in ref:
+            assert got[2 * d][key].tobytes() == got[2 * d + 1][key].tobytes()
+
+
+def test_grid_skeleton_pipeline_writes_one_mp4(run, tmp_path, monkeypatch):
+    """``Text2VideoPipeline(mesh=)`` without a renderer on the (2, 2) grid:
+    every rank's labels equal one process's, and global rank 0 alone writes
+    the run's one mp4."""
+    from text2video_tpu_torch import pipeline
+    from text2video_tpu_torch.config import PipelineConfig
+    from text2video_tpu_torch.golden import golden_pose_inputs
+
+    profile, pdict, table, ts = golden_pose_inputs(n_frames=9)
+    port_stage = pipeline.PoseStage
+    monkeypatch.setattr(pipeline, "PoseStage", lambda p, device="cpu":
+                        port_stage(p, pdict, table, device))
+    ref = pipeline.Text2VideoPipeline(
+        PipelineConfig(person=profile, out_dir=str(tmp_path)),
+        device="cpu").synthesize(ts, "grid", keep_arrays=True)
+    for k in range(WORLD):
+        got = np.load(os.path.join(run["out"], f"serve_rank{k}.npz"))
+        np.testing.assert_array_equal(got["labels"], ref.label_maps)
+        meta = _read(run["out"], "serve", k)
+        assert meta["frames"] == ref.num_frames == 9
+        assert meta["files"] == (["grid.mp4"] if k == 0 else [])
+    out = os.path.join(run["out"], "serve", "fadg0")
+    assert os.listdir(out) == ["grid.mp4"]
+    assert os.path.getsize(os.path.join(out, "grid.mp4")) > 0
 
 
 # ---- the train step ------------------------------------------------------------

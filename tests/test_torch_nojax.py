@@ -6,8 +6,9 @@ through the default DCT wire: coefficients streamed from the renderer and
 JPEGs assembled from them by the native codec),
 ``train-gan`` takes a step on files written from the golden frames (and an
 augmented one), ``jacobi_quality``, ``eval_gan`` and ``eval_gan_many`` read
-its directory, ``make_synthetic_frames`` draws frames and the bench measures
-the scan and Jacobi decoding, in a child process where importing
+its directory, ``make_synthetic_frames`` draws frames, the bench measures
+the scan and Jacobi decoding, and the host rasterizer and the recipe's
+selection run, in a child process where importing
 jax, flax, optax, orbax or text2video_tpu fails. The mesh paths (Jacobi over
 the timeline, ``render_many``, the sharded smoother and rasterizer) run the
 same way in two gloo ranks that the child spawns, with the same modules
@@ -41,7 +42,7 @@ SCRIPT = textwrap.dedent(
                 "train.data", "train.loop", "train.augment",
                 "tools.jacobi_quality", "tools.eval_gan",
                 "tools.eval_gan_many", "tools.make_synthetic_frames",
-                "models.discriminator",
+                "tools.mouth_recipe", "models.discriminator",
                 "models.losses", "models.vgg", "parallel.model_axis",
                 "graft_entry"):
         assert "text2video_tpu_torch." + sub in mods, sub
@@ -141,6 +142,16 @@ SCRIPT = textwrap.dedent(
     assert line["metric"] == "pose2frame_generation_fps_48x32_1chip", line
     assert line["mfu"] is None and line["batch4"]["fps"] > 0, line
     assert bench.jacobi_bench(2, **tiny)["value"] > 0
+
+    from text2video_tpu_torch.ops.rasterize import rasterize_frame_host
+    from text2video_tpu_torch.tools.mouth_recipe import select_checkpoint
+
+    hand = np.zeros(63)
+    corner = rasterize_frame_host(np.zeros(210), np.zeros(75), hand, hand,
+                                  (64, 48))
+    assert corner[0, 0].tolist() == [255, 0, 0], corner[0, 0]
+    assert select_checkpoint([dict(psnr_db=30.0, mouth_psnr_db=20.0),
+                              dict(psnr_db=30.1, mouth_psnr_db=21.0)]) == 1
     loaded = [k for k, v in sys.modules.items() if v is not None
               and k.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                       "text2video_tpu")]

@@ -200,6 +200,37 @@ def test_unpacks_equal_jax_numpy_unpack(w_ac):
             wire_native.unpack_plane(packed, shape, w_ac), ref)
 
 
+@pytest.mark.parametrize("w_ac", [4, 5])
+def test_native_unpack_of_negative_shifted_values(w_ac):
+    """Every AC negative and every block's shift 1, 2 or 3: the native
+    unpack computes ``(v - (lim + 1)) << s`` with a negative left operand,
+    which C++20 defines (C++17 did not), so the codec is built as C++20.
+    Its output is byte-equal to the port's and JAX's numpy unpacks."""
+    from text2video_tpu.ops import dct as jdct
+
+    assert "-std=c++20" in wire_native.CXX_FLAGS
+    lim = (1 << (w_ac - 1)) - 1
+    shape = (2, 5, 7, 12)
+    flat = np.random.RandomState(w_ac).randint(
+        -127, 128, size=(int(np.prod(shape[:-1])), shape[-1]))
+    shifts = np.arange(len(flat)) % 3 + 1
+    top = lim << (shifts - 1)  # max |AC| in (top, 2 top]: shift s
+    flat[:, 1:] = -1 - flat[:, 1:] % top[:, None]
+    flat[:, 1] = -top - 1
+    coeffs = flat.astype(np.int8).reshape(shape)
+    np.testing.assert_array_equal(
+        tdct.block_shift(torch.from_numpy(np.abs(flat[:, 1:]).max(1)), w_ac),
+        shifts)
+    packed = _jax_pack(coeffs, w_ac)
+    ref = jdct._unpack_plane_shift_numpy(packed, shape, w_ac)
+    assert (ref.reshape(len(flat), -1)[:, 1:] < 0).any(axis=1).all()
+    np.testing.assert_array_equal(
+        tdct._unpack_plane_shift_numpy(packed, shape, w_ac), ref)
+    native = wire_native.unpack_plane(packed, shape, w_ac)
+    assert native.dtype == np.int8
+    np.testing.assert_array_equal(native, ref)
+
+
 def test_decode_plane_equal_jax():
     from text2video_tpu.ops import dct as jdct
 

@@ -77,9 +77,7 @@ def host_ops(rank, world, store, in_dir, out_dir):
     """make_mesh, the collectives, the sharded smoothers, the sharded
     rasterizer and ``Text2VideoPipeline(mesh=)`` on the skeleton path."""
     del in_dir
-    from text2video_tpu_torch import parallel, pipeline
-    from text2video_tpu_torch.config import PipelineConfig
-    from text2video_tpu_torch.golden import golden_pose_inputs
+    from text2video_tpu_torch import parallel
     from text2video_tpu_torch.ops import smooth
     from text2video_tpu_torch.ops.rasterize import rasterize_batch_sharded
 
@@ -131,19 +129,7 @@ def host_ops(rank, world, store, in_dir, out_dir):
     _save(out_dir, "raster", rank,
           labels=rasterize_batch_sharded(*raster_inputs(), mesh))
 
-    # One utterance through the skeleton path: sharded smoothing and
-    # rasterization, the mp4 written by rank 0.
-    profile, pdict, table, ts = golden_pose_inputs(n_frames=9)
-    port_stage = pipeline.PoseStage
-    pipeline.PoseStage = (
-        lambda p, device="cpu": port_stage(p, pdict, table, device))
-    try:
-        pipe = pipeline.Text2VideoPipeline(
-            PipelineConfig(person=profile, out_dir=out_dir), mesh=mesh)
-        run = pipe.synthesize(ts, "utt", keep_arrays=True)
-        res = pipe.pose_stage.run(ts, mesh=mesh)
-    finally:
-        pipeline.PoseStage = port_stage
+    run, res, pipe = skeleton_run(mesh, out_dir, "utt")
     _save(out_dir, "pipeline", rank, labels=run.label_maps,
           face_smooth=res.face_smooth, pose_smooth=res.pose_smooth)
     _json(out_dir, "pipeline", rank, dict(
@@ -151,13 +137,37 @@ def host_ops(rank, world, store, in_dir, out_dir):
         frames=int(run.num_frames), device=str(pipe.device)))
 
 
-def tiny_renderer(in_dir: str):
-    """The test's tiny f32 renderer: the JAX weights the test process
-    converted and saved to ``in_dir/generator.pt``, time bucket 4."""
+def skeleton_run(mesh, out_dir: str, name: str):
+    """One 9-frame golden utterance through ``Text2VideoPipeline(mesh=)`` on
+    the skeleton path (sharded smoothing and rasterization), its files
+    written under ``out_dir`` by global rank 0: (the run, the pose stage's
+    result over the mesh, the pipeline)."""
+    from text2video_tpu_torch import pipeline
+    from text2video_tpu_torch.config import PipelineConfig
+    from text2video_tpu_torch.golden import golden_pose_inputs
+
+    profile, pdict, table, ts = golden_pose_inputs(n_frames=9)
+    port_stage = pipeline.PoseStage
+    pipeline.PoseStage = (
+        lambda p, device="cpu": port_stage(p, pdict, table, device))
+    try:
+        pipe = pipeline.Text2VideoPipeline(
+            PipelineConfig(person=profile, out_dir=out_dir), mesh=mesh)
+        run = pipe.synthesize(ts, name, keep_arrays=True)
+        res = pipe.pose_stage.run(ts, mesh=mesh)
+    finally:
+        pipeline.PoseStage = port_stage
+    return run, res, pipe
+
+
+def tiny_renderer(in_dir: str, config=None):
+    """The test's tiny f32 renderer (``config``: a ``RenderConfig``, the
+    default without): the weights the test process saved to
+    ``in_dir/generator.pt``, time bucket 4."""
     from text2video_tpu_torch.render import Renderer
 
-    r = Renderer.create(base_ch=8, n_blocks=1, dtype=torch.float32,
-                        device="cpu")
+    r = Renderer.create(config=config, base_ch=8, n_blocks=1,
+                        dtype=torch.float32, device="cpu")
     r.generator.load_state_dict(
         torch.load(os.path.join(in_dir, "generator.pt"), weights_only=True),
         strict=True)
@@ -173,10 +183,35 @@ def render_inputs():
     return clips, utt
 
 
+def audio_batch(in_dir: str, out_dir: str, items=None, mesh=None):
+    """``Text2VideoPipeline.run_audio_batch`` of ``items`` (default: every
+    pair of ``in_dir/batch.json``, whose data directory, aligner model and
+    dictionary it also names) on the tiny renderer at 64 rows and 6 frames,
+    writing under ``out_dir``; ``mesh=None`` is the process without a
+    mesh."""
+    from text2video_tpu_torch import config as tconfig
+    from text2video_tpu_torch.frontend.align_english import EnglishAligner
+    from text2video_tpu_torch.pipeline import Text2VideoPipeline
+
+    with open(os.path.join(in_dir, "batch.json")) as f:
+        spec = json.load(f)
+    renderer = tiny_renderer(in_dir, tconfig.RenderConfig(load_size=64,
+                                                          max_frames=6))
+    pipe = Text2VideoPipeline(
+        tconfig.PipelineConfig(
+            person=tconfig.get_profile("fadg0", spec["data_dir"]),
+            out_dir=out_dir, frame_chunk=8),
+        renderer=renderer,
+        aligner=EnglishAligner.load(spec["model"], spec["dict"]), mesh=mesh)
+    items = [tuple(i) for i in spec["items"]] if items is None else items
+    return pipe.run_audio_batch(items, keep_arrays=True)
+
+
 def render_ops(rank, world, store, in_dir, out_dir):
     """``render_many(mesh=)`` (one row and two rows a rank, and a batch that
-    does not divide) and Jacobi with the timeline sharded (8 and 7 frames,
-    f32 and uint8)."""
+    does not divide), Jacobi with the timeline sharded (8 and 7 frames, f32
+    and uint8) and ``run_audio_batch(mesh=)`` (one utterance a rank, the
+    files written by rank 0 alone)."""
     mesh = _mesh(rank, world, store)
     r = tiny_renderer(in_dir)
     clips, utt = render_inputs()
@@ -196,6 +231,14 @@ def render_ops(rank, world, store, in_dir, out_dir):
     except ValueError:
         out["indivisible_raises"] = True
     _save(out_dir, "render", rank, **out)
+
+    runs = audio_batch(in_dir, os.path.join(out_dir, "batch"), mesh=mesh)
+    _save(out_dir, "audio_batch", rank,
+          **{f"frames{i}": run.frames for i, run in enumerate(runs)},
+          **{f"labels{i}": run.label_maps for i, run in enumerate(runs)})
+    _json(out_dir, "audio_batch", rank, [dict(
+        name=run.name, frames=int(run.num_frames),
+        files=[os.path.basename(f) for f in run.files]) for run in runs])
 
 
 def train_ops(rank, world, store, in_dir, out_dir):
@@ -251,6 +294,7 @@ def model_ops(rank, world, store, in_dir, out_dir):
     _json(out_dir, "grid", rank, dict(
         shape=mesh.shape, rank=mesh.rank, model_rank=mesh.model_rank,
         is_main=mesh.is_main, backend=mesh.backend))
+    serve_grid(rank, mesh, in_dir, out_dir)
     with open(os.path.join(in_dir, "cfg.json")) as f:
         cfg = trainer.TrainConfig(**json.load(f), dtype=torch.float32)
     batch = {k: torch.from_numpy(v)
@@ -296,6 +340,27 @@ def model_ops(rank, world, store, in_dir, out_dir):
     _json(out_dir, "loaded", rank, sorted(
         k for k, v in sys.modules.items()
         if v is not None and k.split(".")[0] in BLOCKED))
+
+
+def serve_grid(rank, mesh, in_dir, out_dir):
+    """The serving paths on the (2, 2) grid, sharded over "data" and
+    replicated over "model": Jacobi with the timeline sharded, ``render_many``
+    (one and two rows a data index) on the tiny renderer of
+    ``in_dir/generator.pt``, and ``Text2VideoPipeline(mesh=)`` on the
+    skeleton path, its mp4 under ``out_dir/serve``."""
+    r = tiny_renderer(in_dir)
+    clips, utt = render_inputs()
+    n = mesh.n_data
+    run, _, _ = skeleton_run(mesh, os.path.join(out_dir, "serve"), "grid")
+    _save(out_dir, "serve", rank,
+          jac8=r.render_jacobi_sharded(utt, mesh, sweeps=2),
+          jac7=r.render_jacobi_sharded(utt[:7], mesh, sweeps=3),
+          many1=r.render_many(clips[:n], mesh=mesh),
+          many2=r.render_many(clips[:2 * n], mesh=mesh),
+          labels=run.label_maps)
+    _json(out_dir, "serve", rank, dict(
+        files=[os.path.basename(f) for f in run.files],
+        frames=int(run.num_frames)))
 
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "text2video_tpu")

@@ -15,7 +15,8 @@ pixel work:
     YUV->BGR.
 
 The library is compiled on first use with ``g++`` directly (``-O3``, as
-``native/CMakeLists.txt`` builds it; no cmake), into
+``native/CMakeLists.txt`` builds it, but as C++20: the unpack left-shifts
+negative values, which C++17 leaves undefined; no cmake), into
 ``build/torch_native/<hash of the source and flags>/`` at the root of the
 checkout, through ``buildcache.build_library`` (a lock, so concurrent test
 workers build once, and an atomic rename). A failed build raises with the
@@ -39,7 +40,7 @@ _REPO_ROOT = Path(__file__).resolve().parent.parent.parent
 SOURCE = _REPO_ROOT / "native" / "wire" / "wire.cc"
 BUILD_ROOT = _REPO_ROOT / "build" / "torch_native"
 LIB_NAME = "libt2v_wire.so"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+CXX_FLAGS = ("-O3", "-std=c++20", "-fPIC", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 

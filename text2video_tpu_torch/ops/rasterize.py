@@ -9,8 +9,15 @@ hand-centre circles overwrite last. Counts and blends are integer-valued in
 f32, so the result equals the JAX device path exactly.
 ``rasterize_batch_sharded`` splits an utterance's frames over a mesh.
 
-The topology constants below are copied from the JAX module, which cannot
-be imported without JAX.
+Beside it, the bit-exact host drawing (``rasterize_frame_host``; numpy and
+``cv2.circle``): the reference's sequential vector stamps, half-intensity
+fringes, uint8 wraparound and the corner circles of a handless person, pixel
+for pixel. It never runs on the serving path; it is the independent
+reference the device drawing is held against (SSIM >= 0.96, as the JAX
+package holds its own).
+
+The topology constants and the host drawing are copied from the JAX module,
+which cannot be imported without JAX.
 """
 
 from __future__ import annotations
@@ -79,7 +86,201 @@ def face_subedges() -> List[Tuple[int, int]]:
     return pairs
 
 
+def hand_subedges() -> List[Tuple[int, int, int]]:
+    """(finger, a, b) point-pairs for one hand in drawing order."""
+    out = []
+    for fi, chain in enumerate(HAND_CHAINS):
+        for j in range(len(chain) - 1):
+            out.append((fi, chain[j], chain[j + 1]))
+    return out
+
+
 FACE_SUBEDGES = face_subedges()
+HAND_SUBEDGES = hand_subedges()
+
+
+# ---- keypoint validation and the bit-exact host drawing (numpy) -------------
+
+
+def validate_pose(pts: np.ndarray) -> np.ndarray:
+    """[25,3] -> [25,2]: zero out low-confidence points."""
+    out = np.zeros((pts.shape[0], 2))
+    valid = pts[:, 2] > POSE_CONF_THRESH
+    out[valid] = pts[valid, :2]
+    return out
+
+
+def validate_face(pts: np.ndarray) -> np.ndarray:
+    """[70,3] -> [70,2]: a point survives if any containing face edge has
+    all confidences above threshold."""
+    out = np.zeros((70, 2))
+    for group in FACE_GROUPS:
+        for edge in group:
+            idx = np.asarray(edge)
+            if (pts[idx, 2] > FACE_CONF_THRESH).all():
+                out[idx] = pts[idx, :2]
+    return out
+
+
+def validate_hand(pts: np.ndarray) -> np.ndarray:
+    """[21,3] -> [21,2]: whole finger chains pass or fail together."""
+    out = np.zeros((21, 2))
+    for chain in HAND_CHAINS:
+        idx = np.asarray(chain)
+        if (pts[idx, 2] > HAND_CONF_THRESH).all():
+            out[idx] = pts[idx, :2]
+    return out
+
+
+def _sample_segment(x: np.ndarray, y: np.ndarray):
+    """Sampled integer pixels of a 2-point segment, reference semantics."""
+    swapped = abs(x[0] - x[1]) < abs(y[0] - y[1])
+    if swapped:
+        x, y = y, x
+    if x[0] > x[-1]:
+        x = x[::-1].copy()
+        y = y[::-1].copy()
+    n = int(x[-1] - x[0])
+    if n <= 0:
+        return None, None
+    xs = np.linspace(x[0], x[-1], n)
+    if n == 1:
+        ys = np.asarray([y[0]], dtype=float)
+    else:
+        a = (y[1] - y[0]) / (x[1] - x[0])
+        b = y[0] - a * x[0]
+        ys = a * xs + b
+    xi, yi = xs.astype(int), ys.astype(int)
+    if swapped:
+        return yi, xi
+    return xi, yi
+
+
+def _vector_stamp(im: np.ndarray, yy: np.ndarray, xx: np.ndarray, color):
+    """The reference's vectorized setColor: all-empty -> assign; else every
+    target pixel averages with the color (uint8 floor)."""
+    if (im[yy, xx] == 0).all():
+        im[yy, xx, 0], im[yy, xx, 1], im[yy, xx, 2] = (color[0], color[1],
+                                                       color[2])
+    else:
+        for c in range(3):
+            im[yy, xx, c] = ((im[yy, xx, c].astype(float) + color[c])
+                             / 2).astype(np.uint8)
+
+
+def _draw_thick(im, xs, ys, bw, color, endpoints: bool):
+    if xs is None or xs.size == 0:
+        return
+    h, w = im.shape[:2]
+    for i in range(-bw, bw):
+        for j in range(-bw, bw):
+            yy = np.maximum(0, np.minimum(h - 1, ys + i))
+            xx = np.maximum(0, np.minimum(w - 1, xs + j))
+            _vector_stamp(im, yy, xx, color)
+    if endpoints:
+        for i in range(-bw * 2, bw * 2):
+            for j in range(-bw * 2, bw * 2):
+                if i * i + j * j < 4 * bw * bw:
+                    yy = np.maximum(
+                        0, np.minimum(h - 1, np.array([ys[0], ys[-1]]) + i))
+                    xx = np.maximum(
+                        0, np.minimum(w - 1, np.array([xs[0], xs[-1]]) + j))
+                    _vector_stamp(im, yy, xx, color)
+
+
+def _draw_circle(im: np.ndarray, cx: int, cy: int, radius: int, color):
+    """Filled circle by overwrite (the reference uses cv2.circle)."""
+    import cv2
+
+    cv2.circle(im, (cx, cy), radius, color, -1)
+
+
+def rasterize_person_host(
+    pose_pts: np.ndarray,
+    face_pts: np.ndarray,
+    hand_l_pts: np.ndarray,
+    hand_r_pts: np.ndarray,
+    size: Tuple[int, int],
+) -> np.ndarray:
+    """One person's [25,3]/[70,3]/[21,3]x2 keypoints -> [h,w,3] uint8."""
+    w, h = size
+    im = np.zeros((h, w, 3), np.uint8)
+    pose = validate_pose(pose_pts)
+    face = validate_face(face_pts)
+    hands = [validate_hand(hand_l_pts), validate_hand(hand_r_pts)]
+
+    for edge, color in zip(POSE_EDGES, POSE_EDGE_COLORS):
+        x = pose[list(edge), 0]
+        y = pose[list(edge), 1]
+        if 0 in x:
+            continue
+        xs, ys = _sample_segment(x, y)
+        _draw_thick(im, xs, ys, POSE_BW, color, endpoints=True)
+
+    for hand in hands:
+        for fi, a, b in HAND_SUBEDGES:
+            x = hand[[a, b], 0]
+            y = hand[[a, b], 1]
+            if 0 in x:
+                continue
+            xs, ys = _sample_segment(x, y)
+            _draw_thick(im, xs, ys, POSE_BW, HAND_CHAIN_COLORS[fi],
+                        endpoints=True)
+
+    for a, b in FACE_SUBEDGES:
+        x = face[[a, b], 0]
+        y = face[[a, b], 1]
+        if 0 in x:
+            continue
+        xs, ys = _sample_segment(x, y)
+        _draw_thick(im, xs, ys, FACE_BW, (255, 255, 255), endpoints=False)
+
+    for hand, color in zip(hands, CIRCLE_COLORS):
+        _draw_circle(im, int(hand[HAND_CENTER_POINT, 0]),
+                     int(hand[HAND_CENTER_POINT, 1]), CIRCLE_RADIUS, color)
+    return im
+
+
+def rasterize_frame_host(
+    face_track: np.ndarray,
+    pose_track: np.ndarray,
+    hand_l: np.ndarray,
+    hand_r: np.ndarray,
+    size: Tuple[int, int],
+) -> np.ndarray:
+    """Track vectors (face [210], pose [75], hands [63]) -> [h,w,3] uint8.
+
+    Accumulates with uint8 wraparound like the reference's multi-person
+    ``pose_img +=`` (keypoint2img.py:89); with one person it is a copy.
+    """
+    img = np.zeros((size[1], size[0], 3), np.uint8)
+    img += rasterize_person_host(
+        pose_track.reshape(25, 3),
+        face_track.reshape(70, 3),
+        hand_l.reshape(21, 3),
+        hand_r.reshape(21, 3),
+        size,
+    )
+    return img
+
+
+SSIM_MIN = 0.96  # the device drawing's bound against the host drawing
+
+
+def whole_ssim(a: np.ndarray, b: np.ndarray) -> float:
+    """Whole-image SSIM (one window: the image) of two uint8 frames, the
+    JAX package's measure of the device drawing against the host drawing
+    (``tests/test_rasterize.py``)."""
+    a = a.astype(np.float64)
+    b = b.astype(np.float64)
+    mu_a, mu_b = a.mean(), b.mean()
+    cov = ((a - mu_a) * (b - mu_b)).mean()
+    c1, c2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
+    return float(((2 * mu_a * mu_b + c1) * (2 * cov + c2))
+                 / ((mu_a ** 2 + mu_b ** 2 + c1) * (a.var() + b.var() + c2)))
+
+
+# ---- the device drawing ------------------------------------------------------
 
 
 def _disk_offsets(bw: int) -> np.ndarray:
