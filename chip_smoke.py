@@ -5,7 +5,12 @@
 Builds the hand-written kernels from ``text2video_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the shapes the serving path gives
 it, runs one full-width generator forward through the kernel against the
-same forward through the plain version, then drives the serving path end to
+same forward through the plain version, holds the generator's phase forms
+(the default, as in the JAX package: the stem, the decoder's upsamples and
+the heads as coarse-resolution window convs, ``ops/phase_conv.py``) against
+the plain forms op by op and as whole calls at batch 1, 4 and 64, with their
+device times, kernels and memory (``[phase_form]``), then drives the serving
+path end to
 end at the flagship model's full width (512x384, base 64, 9 resblocks,
 bf16, seeded random weights, a 256-frame utterance from the golden pose
 frames): ``Text2VideoPipeline.synthesize`` with the fused pose op, the
@@ -697,6 +702,7 @@ def jacobi_phases(data: str, ckpt: str, out_dir: str, scan_renderer,
     jac8 = jacobi(8).render_jacobi(short, sweeps=8)
     scan8 = scan_renderer.render(short)
     phase("jacobi", frames=t, sweeps=JACOBI_SWEEPS, bucket=CHUNK,
+          form="phase" if one.generator.phase_form else "plain",
           seconds=jac_s, fps=t / jac_s, scan_seconds=scan_s,
           scan_fps=t / scan_s, seconds_by_sweeps=json.dumps(seconds),
           device_ms_per_sweep=busy, kernels_per_sweep=n_kernels,
@@ -2435,6 +2441,192 @@ def entry_phase() -> dict:
     return {"entry": n}
 
 
+# The phase forms' ops at 512x384, base 64 (name, input [H, W, C], output
+# channels): the stem into down.0, the three decoder upsamples, the heads.
+PHASE_OPS = [
+    ("stem_down0", (384, 512, 15), 128),
+    ("up0", (48, 64, 512), 256),
+    ("up1", (96, 128, 256), 128),
+    ("up2", (192, 256, 128), 64),
+    ("heads", (384, 512, 64), 6),
+]
+PHASE_TOL = 2e-4  # f32, phase against plain: JAX's tests/test_phase_conv.py
+
+
+def allclose_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / (PHASE_TOL * (1 + |b|)): within the bound when <= 1."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs() / (PHASE_TOL * (1 + b.abs()))).max().item()
+
+
+def phase_op_pair(name: str, c_in: int, c_out: int, dt, dev):
+    """(phase form, plain form, input maker) of one op of :data:`PHASE_OPS`
+    on seeded lecun weights in ``dt``; both forms return the full-res
+    result (the phase form's op emits what the generator emits, and the
+    comparison turns it back)."""
+    from text2video_tpu_torch.models.layers import Conv, ConvBlock, reflect_pad
+    from text2video_tpu_torch.ops import phase_conv as pc
+
+    seed = torch.Generator().manual_seed(3)
+    if name == "stem_down0":
+        stem = ConvBlock(c_in, 64, kernel=7, dtype=dt)
+        down = ConvBlock(64, c_out, stride=2, dtype=dt)
+        for m in (stem, down):
+            m.conv.reset_parameters(seed)
+            m.to(dev)
+        return (lambda x: down.from_phase(stem.phase_stem(x)),
+                lambda x: down(stem(x)), None)
+    if name == "heads":
+        conv = Conv(c_in, c_out, kernel=7, dtype=dt)
+        conv.reset_parameters(seed)
+        conv.to(dev)
+
+        def heads(p):  # as CompositeGenerator.forward runs it
+            k7, b7 = conv.weights(pc.build_head_kernel)
+            return pc.head_window(p, k7) + b7
+
+        return heads, (lambda f: conv(reflect_pad(f, 3))), pc.space_to_depth2
+    block = ConvBlock(c_in, c_out, dtype=dt)
+    block.conv.reset_parameters(seed)
+    block.to(dev)
+    emit = name == "up2"  # the last upsample hands the heads its phase tensor
+    return (lambda x: block.upsample2x(x, emit_phase=emit),
+            lambda x: block(x.repeat_interleave(2, 1).repeat_interleave(2, 2)),
+            None)
+
+
+def phase_form_phase(dev, card: str) -> None:
+    """``[phase_form]``: each phase op of :data:`PHASE_OPS` against the plain
+    op it replaces, on the same weights, at batch 1 and 64, in f32 (max
+    error, bounded by :data:`PHASE_TOL`) and bf16 (a row's output the same
+    at batch 1, 2, 4 and 64); device ms of both forms by CUDA-graph replay
+    (bf16 at both batches, f32 at batch 1) and kernels a call (bf16, batch
+    1); then one whole generator call at [1,...], [4,...] and [64,...] in
+    both forms on one set of weights (``Renderer.create(phase_form=...)``,
+    the heads scaled by 0.1): device ms, kernels, a call's peak memory, the
+    f32 frame/flow/mask bound and the bf16 error against f32."""
+    from text2video_tpu_torch.ops import phase_conv as pc
+    from text2video_tpu_torch.render import Renderer
+
+    t_start = time.perf_counter()
+    # Inputs drawn on the card: a [64, 384, 512, 64] draw on the host takes
+    # seconds.
+    gen = torch.Generator(device=dev).manual_seed(5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for name, (h, w, c_in), c_out in PHASE_OPS:
+        fields = {}
+        for b in (1, CHUNK):
+            x32 = torch.rand((b, h, w, c_in), generator=gen,
+                             device=dev) * 2 - 1
+            for dt in (f32, bf16):
+                phase_fn, plain_fn, prep = phase_op_pair(name, c_in, c_out,
+                                                         dt, dev)
+                x = x32.to(dt)
+                xp = prep(x) if prep else x
+                with torch.inference_mode():
+                    y, y0 = phase_fn(xp), plain_fn(x)
+                    if y.shape != y0.shape:
+                        y = pc.depth_to_space2(y)
+                check(y.shape == y0.shape,
+                      f"[phase_form] {name}: {tuple(y.shape)} against "
+                      f"{tuple(y0.shape)}")
+                key = f"b{b}_{str(dt).split('.')[-1]}"
+                err = (y.float() - y0.float()).abs().max().item()
+                fields[f"{key}_max_err"] = err
+                if dt == f32:
+                    bound_x = allclose_err(y, y0)
+                    check(bound_x <= 1.0,
+                          f"[phase_form] {name} batch {b}: f32 phase form "
+                          f"off the plain form by {err} ({bound_x} of the "
+                          f"bound)")
+                del y, y0
+                if b == CHUNK and dt == bf16:
+                    # A row's output must not depend on its batch (the mesh
+                    # holds sharded serving bit-equal to one process).
+                    with torch.inference_mode():
+                        row0 = phase_fn(xp[:1])
+                        same = [torch.equal(phase_fn(xp[:n])[:1], row0)
+                                for n in (2, 4, CHUNK)]
+                    fields["bf16_row_equal_at_batch_2_4_64"] = same
+                    check(all(same), f"[phase_form] {name}: a row's output "
+                          f"depends on the batch: {same}")
+                if b == 1 or dt == bf16:
+                    calls = 20 if b == 1 else 4
+                    with torch.inference_mode():
+                        fields[f"{key}_ms"] = graph_ms(
+                            lambda: phase_fn(xp), calls=calls)
+                        fields[f"{key}_plain_ms"] = graph_ms(
+                            lambda: plain_fn(x), calls=calls)
+                if b == 1 and dt == bf16:
+                    with torch.inference_mode():
+                        _, fields["b1_bf16_kernels"], fields["b1_bf16_top"] = (
+                            device_profile(lambda: phase_fn(xp), 1))
+                        (_, fields["b1_bf16_plain_kernels"],
+                         fields["b1_bf16_plain_top"]) = device_profile(
+                            lambda: plain_fn(x), 1)
+                del x, xp
+        phase("phase_form", op=name, shape=[h, w, c_in], cout=c_out, **fields)
+    torch.cuda.empty_cache()
+    renderers = {(dt, pf): Renderer.create(seed=0, dtype=dt, phase_form=pf,
+                                           device=dev)
+                 for dt in (f32, bf16) for pf in (True, False)}
+    for r in renderers.values():
+        # Flows of a few pixels, as the parity tests hold them (ROADMAP,
+        # known behaviour 5): the lecun heads' ~30 px flows resolve only to
+        # ~1e-4 in f32, in either form.
+        with torch.no_grad():
+            r.generator.heads.kernel.mul_(0.1)
+    for b in (1, 4, CHUNK):
+        labels = torch.rand((b, 384, 512, 9), generator=gen,
+                            device=dev) * 2 - 1
+        prev = torch.rand((b, 384, 512, 6), generator=gen,
+                          device=dev) * 2 - 1
+        has_prev = torch.ones((b,), device=dev)
+        has_prev[0] = 0.0  # a first frame: the mask forced open
+        args = (labels, prev, has_prev)
+        outs, fields = {}, {}
+        for (dt, pf), r in renderers.items():
+            g = r.generator
+            with torch.inference_mode():
+                outs[dt, pf] = [o.float() for o in g(*args)]
+                if dt == f32:
+                    continue
+                form = "phase" if pf else "plain"
+                # What a call needs above what is held (weights, inputs).
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                g(*args)
+                torch.cuda.synchronize()
+                fields[f"{form}_call_peak_gib"] = (
+                    torch.cuda.max_memory_allocated() - held) / 2**30
+                fields[f"{form}_ms"] = graph_ms(
+                    lambda: g(*args), calls=20 if b <= 4 else 2,
+                    reps=5 if b <= 4 else 3)
+                fields[f"{form}_kernels"] = device_profile(
+                    lambda: g(*args), 1)[1]
+        phase32, plain32 = outs[f32, True], outs[f32, False]
+        f32_errs = [(a - c).abs().max().item()
+                    for a, c in zip(phase32, plain32)]
+        f32_bound = max(allclose_err(a, c) for a, c in zip(phase32, plain32))
+        e16 = {pf: (outs[bf16, pf][0] - plain32[0]).abs().mean().item()
+               for pf in (True, False)}
+        phase("phase_form", generator_batch=b, hw="512x384", base_ch=64,
+              n_blocks=9, **fields, f32_err_frame_flow_mask=f32_errs,
+              f32_bound_share=f32_bound, bf16_mean_err_phase=e16[True],
+              bf16_mean_err_plain=e16[False], card=card)
+        check(f32_bound <= 1.0,
+              f"[phase_form] generator batch {b}: f32 phase form off the "
+              f"plain form by {f32_errs} ({f32_bound} of the bound)")
+        check(e16[True] < 3.0 * e16[False] + 1e-3,
+              f"[phase_form] generator batch {b}: bf16 phase error "
+              f"{e16[True]} against plain {e16[False]}")
+        del outs, args, labels, prev
+    del renderers
+    torch.cuda.empty_cache()
+    phase("phase_form", seconds=time.perf_counter() - t_start)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
@@ -2603,6 +2795,10 @@ def main() -> None:
     phase("generator_f32", hw="512x384", base_ch=64, n_blocks=9,
           b1_launches=n_launch, err_frame_flow_mask=gen_errs)
     del r32, out_k, out_p
+    from text2video_tpu_torch.bench import device_info
+
+    card = device_info(dev)  # as nvidia-smi --query-gpu=name,power.limit
+    card = f"{card['name']}, {card['power_limit']}"
 
     # ---- 5. the serving path, bf16 -----------------------------------------
     import cv2
@@ -2701,8 +2897,21 @@ def main() -> None:
     busy, n_kernels, top = device_profile(
         lambda: renderer.generate_device(labels[:, :PROFILE_STEPS]),
         PROFILE_STEPS)
-    phase("profile", frames=PROFILE_STEPS, device_ms_per_frame=busy,
-          kernels_per_frame=n_kernels, top_ms_launches_per_frame=top)
+    # The same frames through the plain form on the same weights.
+    plain_r = Renderer.create(seed=0, dtype=torch.bfloat16, phase_form=False)
+    plain_r.time_bucket = CHUNK
+    plain_r.generate_device(labels[:, :2])  # its first calls build copies
+    busy0, n_kernels0, top0 = device_profile(
+        lambda: plain_r.generate_device(labels[:, :PROFILE_STEPS]),
+        PROFILE_STEPS)
+    del plain_r
+    check(renderer.generator.phase_form, "the serving renderer's form")
+    phase("profile", frames=PROFILE_STEPS, form="phase",
+          device_ms_per_frame=busy, kernels_per_frame=n_kernels,
+          top_ms_launches_per_frame=top, plain_device_ms_per_frame=busy0,
+          plain_kernels_per_frame=n_kernels0,
+          plain_top_ms_launches_per_frame=top0)
+    phase_form_phase(dev, card)
     # ---- 6. the user's entry points: the bench (its gen line is the warm
     # generation rate), then the CLI, text (or audio) in, mp4 out -----------
     pipeline.PoseStage = port_stage  # both run unpatched from here on
@@ -2765,10 +2974,7 @@ def main() -> None:
          "bound_ms": b2_bound_ms, "bound_by": b2_bound_by,
          "library_ms": None},
     ]}), flush=True)
-    from text2video_tpu_torch.bench import device_info
-
-    card = device_info(dev)  # as nvidia-smi --query-gpu=name,power.limit
-    print(f"{card['name']}, {card['power_limit']}", flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,8 @@
-"""CompositeGenerator: the port (plain tail) against the JAX generator (phase
-form) with parameters converted by params_from_flax; the local-enhancer
-variant; the plain-resblock form that trains, and its gradients."""
+"""CompositeGenerator: the port (its default, the phase form) against the JAX
+generator (its default, the phase form) with parameters converted by
+params_from_flax; the local-enhancer variant in either form on both sides;
+the plain-resblock form that trains, and its gradients. The phase forms
+function by function: tests/test_torch_phase_conv.py."""
 
 import numpy as np
 import pytest
@@ -60,8 +62,10 @@ def test_generator_matches_jax(fused):
                   phase_form=True, fused_resblocks=fused)
     ref = [np.asarray(a) for a in jax.jit(jgen.apply)(
         params, jnp.asarray(labels), jnp.asarray(prev), jnp.asarray(has_prev))]
+    gen = _port(params)
+    assert gen.phase_form  # the default, as in JAX
     with torch.inference_mode():
-        out = _port(params)(*map(torch.from_numpy, (labels, prev, has_prev)))
+        out = gen(*map(torch.from_numpy, (labels, prev, has_prev)))
     for name, o, r in zip(("frame", "flow", "mask"), out, ref):
         assert o.shape == r.shape, name
         np.testing.assert_allclose(o.numpy(), r, atol=1e-4, rtol=0,
@@ -136,7 +140,7 @@ def test_local_enhancer_generator_matches_jax(phase_form):
         params, jnp.asarray(labels), jnp.asarray(prev), jnp.asarray(has_prev))]
     gen = CompositeGenerator(15, base_ch=BASE, n_blocks=BLOCKS,
                              dtype=torch.float32, n_local_enhancers=1,
-                             n_local_blocks=2)
+                             n_local_blocks=2, phase_form=phase_form)
     sd = params_from_flax(params)
     assert len(sd) == len(jax.tree_util.tree_leaves(params))
     gen.load_state_dict(sd, strict=True)

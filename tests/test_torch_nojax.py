@@ -44,7 +44,7 @@ SCRIPT = textwrap.dedent(
                 "tools.eval_gan_many", "tools.make_synthetic_frames",
                 "tools.mouth_recipe", "models.discriminator",
                 "models.losses", "models.vgg", "parallel.model_axis",
-                "graft_entry"):
+                "graft_entry", "ops.phase_conv"):
         assert "text2video_tpu_torch." + sub in mods, sub
 
     from text2video_tpu_torch import pipeline
@@ -58,6 +58,7 @@ SCRIPT = textwrap.dedent(
         lambda p, device="cpu": port_stage(p, pdict, table, device))
     renderer = Renderer.create(config=RenderConfig(load_size=64), base_ch=8,
                                n_blocks=1, dtype=torch.float32, device="cpu")
+    assert renderer.generator.phase_form  # the default, as in JAX
     renderer.time_bucket = 4
     with tempfile.TemporaryDirectory() as tmp:
         cfg = PipelineConfig(person=profile, out_dir=tmp, stream=False,

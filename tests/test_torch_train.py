@@ -14,12 +14,14 @@ import torch
 
 from torch_train_parity import (
     CFG,
+    KINK_MARGIN,
     _batch,
     _check_params,
     _jax_state_and_step,
     _to_np,
     _torch_batch,
     check_variant,
+    photometric_margin,
 )
 from text2video_tpu_torch.convert import (
     params_from_flax,
@@ -40,10 +42,12 @@ def test_converted_state_takes_a_second_step_like_jax():
     """Adam's moments and count come over too: from the JAX state *after* a
     step, the port's next step moves the parameters as the JAX step does."""
     s0, step = _jax_state_and_step({}, seed=1)
-    batch = _batch()
+    # Seed 0's batch put an element of the flow loss 6.0e-6 from its kink.
+    batch = _batch(seed=3)
     s1, _ = step(s0, batch)
     s2, m2 = step(s1, batch)
     to_np = _to_np
+    assert photometric_margin(to_np(s1), batch) > KINK_MARGIN
     state = trainer_state_from_flax(to_np(s1), CFG, device="cpu")
     assert state.step == 1
     state, metrics = tt.make_train_step(CFG)(state, _torch_batch(batch))

@@ -83,6 +83,33 @@ def _jax_step(overrides, batch):
                                               for k, v in metrics.items()}
 
 
+# The flow loss's photometric term |warp(real_prev, flow) - real_cur| has a
+# kink at 0. An element nearer to it than two lowerings' f32 noise (flows
+# differ by up to ~1e-5) takes the gradient's sign from that noise and moves
+# every G gradient by up to ~1e-2 of the largest. A batch held to the 1e-4
+# gradient bound keeps every element this far from the kink.
+KINK_MARGIN = 2e-5
+
+
+def photometric_margin(before, batch, cfg=CFG) -> float:
+    """The least |warp(real_prev, flow) - real_cur| of the flow loss over
+    ``batch``, from the port's f32 forward of the generator of ``before``
+    (a JAX ``TrainerState``, leaves as numpy)."""
+    from text2video_tpu_torch.ops.warp import flow_warp
+
+    state = trainer_state_from_flax(before, cfg, device="cpu")
+    b = _torch_batch(batch)
+    with torch.no_grad():
+        _, flows = tt._generate_clip(state.generator, cfg, b["labels"],
+                                     b["reals"])
+    reals = b["reals"].float()
+    hw = reals.shape[2:]
+    d = (flow_warp(reals[:, :-1].reshape(-1, *hw),
+                   flows[:, 1:].reshape(-1, *flows.shape[2:]))
+         - reals[:, 1:].reshape(-1, *hw))
+    return float(d.abs().min())
+
+
 def _discs_from_flax(d_tree):
     return {f"{key}.{k}": v for key, tree in d_tree.items()
             for k, v in discriminator_from_flax(tree).items()}

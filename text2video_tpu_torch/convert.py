@@ -12,7 +12,8 @@ leaves as numpy) is laid out as::
 
 with every ConvBlock holding ``Conv_0/{kernel,bias}`` and
 ``InstanceNorm_0/{scale,bias}``. The phase form and the fused form of the
-JAX generator share this tree, so one mapping serves every JAX variant.
+JAX generator share this tree, and so do the port's phase and plain forms
+(``CompositeGenerator(phase_form=...)``): one mapping serves every variant.
 With local enhancers the top level also holds, for the j-th stage in the
 order the stages run (the coarsest first), ``ConvBlock_{2j}`` (7x7 stem),
 ``ConvBlock_{2j+1}`` (stride 2), ``Conv_j`` (the 3x3 conv on the coarser

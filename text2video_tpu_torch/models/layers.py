@@ -1,13 +1,15 @@
 """Building blocks of the pose2frame generator, in PyTorch.
 
-Counterpart of ``text2video_tpu/models/layers.py`` (plain forms only; the
-TPU phase forms are not ported). Public tensors are NHWC, as in the JAX
-package. Parameters keep the flax layout and dtype — conv kernels HWIO
+Counterpart of ``text2video_tpu/models/layers.py``, with its phase forms
+(``ConvBlock.upsample2x``, ``phase_stem``, ``from_phase``;
+``ops/phase_conv.py``). Public tensors are NHWC, as in the JAX package.
+Parameters keep the flax layout and dtype — conv kernels HWIO
 ``[k, k, cin, cout]`` float32 under ``kernel``, biases under ``bias``,
 instance-norm ``scale``/``bias`` — so a converted flax tree
-(``convert.py``) loads without transposes. Each conv keeps a packed copy of
-its kernel and bias in the compute dtype, made once and remade only when a
-parameter changes, not cast on every call. The copies are detached and serve
+(``convert.py``) loads without transposes, into either form. Each conv keeps
+a packed copy of its kernel and bias in the compute dtype, and of each phase
+kernel built from it, made once and remade only when a parameter changes,
+not cast or built on every call. The copies are detached and serve
 inference; when grad mode is on and a parameter requires grad, a conv casts
 the live f32 parameter inside the graph instead (what flax does with
 ``param_dtype=f32, dtype=bf16``), so gradients reach the master parameters.
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from text2video_tpu_torch.ops import fused_resblock
+from text2video_tpu_torch.ops import fused_resblock, phase_conv
 
 # flax's lecun_normal draws from a normal truncated at +-2 std and rescales
 # by this constant so the kept samples have the nominal variance.
@@ -114,8 +116,9 @@ class Conv(nn.Module):
             torch.zeros(kernel, kernel, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
         # F.conv2d's OIHW kernel and the bias, in the compute dtype.
-        self._packed = ParamCopy(lambda k, b: (
-            k.to(dtype).permute(3, 2, 0, 1).contiguous(), b.to(dtype)))
+        self._packed = ParamCopy(self._packer(None))
+        # The same for each phase kernel built from it, by builder.
+        self._phase = {}
         # The fused op's HWIO kernel in the compute dtype.
         self._hwio = ParamCopy(lambda k: k.to(dtype).contiguous())
         # The mesh's model axis (parallel/mesh.py::shard_params): (lo, hi,
@@ -138,27 +141,54 @@ class Conv(nn.Module):
         """The kernel [k, k, cin, cout] in the compute dtype (cached)."""
         return self._hwio.get(self.kernel)
 
+    def _packer(self, build: Optional[Callable]):
+        dtype = self.dtype
+
+        def make(k: torch.Tensor, b: torch.Tensor):
+            k = k.to(dtype)
+            if build is not None:
+                k = build(k)
+            return phase_conv.oihw(k).contiguous(), b.to(dtype)
+
+        return make
+
     def trains(self) -> bool:
         """True when a call must stay on the autograd graph of the
         parameters."""
         return torch.is_grad_enabled() and (
             self.kernel.requires_grad or self.bias.requires_grad)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def weights(self, build: Optional[Callable] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(kernel, bias) in the compute dtype, the kernel OIHW for
+        ``F.conv2d``; with ``build`` (a phase-kernel builder of
+        ``ops/phase_conv.py``, HWIO to HWIO) the kernel it builds from the
+        compute-dtype kernel. A kernel sharded over the model axis is the
+        step's whole kernel on the graph of the local shard; under training
+        the live parameters are cast (and built) inside the graph; otherwise
+        the copy made once per parameter version."""
         if self.gathered is not None:
-            # A kernel sharded over the model axis: the step's full kernel,
-            # in the compute dtype, on the graph of the local shard.
-            w = self.gathered.use(self.kernel).permute(3, 2, 0, 1)
-            b = self.bias.to(self.dtype)
+            k, b = self.gathered.use(self.kernel), self.bias.to(self.dtype)
         elif self.shard is not None:
             raise RuntimeError(
                 "a conv kernel sharded over the mesh's model axis runs only "
                 "inside parallel.model_axis.gathered_kernels")
         elif self.trains():
-            w = self.kernel.to(self.dtype).permute(3, 2, 0, 1)
-            b = self.bias.to(self.dtype)
+            k, b = self.kernel.to(self.dtype), self.bias.to(self.dtype)
         else:
-            w, b = self._packed.get(self.kernel, self.bias)
+            if build is None:
+                copy = self._packed
+            else:
+                copy = self._phase.get(build)
+                if copy is None:
+                    copy = self._phase[build] = ParamCopy(self._packer(build))
+            return copy.get(self.kernel, self.bias)
+        if build is not None:
+            k = build(k)
+        return phase_conv.oihw(k), b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weights()
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
                      stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1) + b
@@ -167,7 +197,12 @@ class Conv(nn.Module):
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalisation over H and W with f32 stats:
     ``var = max(E[x^2] - E[x]^2, 0)``, eps 1e-5, and the affine applied as
-    ``x * mul + add`` with ``mul``/``add`` rounded to the compute dtype."""
+    ``x * mul + add`` with ``mul``/``add`` rounded to the compute dtype.
+
+    An input with four times ``features`` channels is a phase tensor
+    [B, h, w, 4*C] (``ops/phase_conv.py``): the statistics pool over space
+    and the four phases, which are those of the full-resolution map, and the
+    (C,) parameters apply to every phase, so they keep their shape."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16,
                  epsilon: float = 1e-5):
@@ -184,16 +219,29 @@ class InstanceNorm(nn.Module):
     ) -> torch.Tensor:
         """``stats``: precomputed ([B, C] mean, [B, C] var), as the fused
         conv kernel emits them from its f32 accumulator."""
+        phase = x.shape[-1] // self.scale.shape[0]
+        if phase > 1:
+            # [B, h, w, phase, C]: a view, so the affine below broadcasts.
+            x = x.unflatten(-1, (phase, self.scale.shape[0]))
+        dims = (1, 2, 3) if phase > 1 else (1, 2)
         if stats is not None:
             mean, var = stats
         else:
-            mean = x.float().mean(dim=(1, 2))
-            m2 = x.square().float().mean(dim=(1, 2))
+            mean = x.float().mean(dim=dims)
+            m2 = x.square().float().mean(dim=dims)
             var = torch.clamp(m2 - mean.square(), min=0.0)
         rstd = torch.rsqrt(var + self.epsilon)
         mul = (rstd * self.scale).to(self.dtype)
         add = (self.bias - mean * rstd * self.scale).to(self.dtype)
-        return x * mul[:, None, None, :] + add[:, None, None, :]
+        idx = (slice(None),) + (None,) * len(dims)
+        y = x * mul[idx] + add[idx]
+        return y.flatten(-2) if phase > 1 else y
+
+
+def _add_tiled(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A phase tensor [B, h, w, 4*C] plus the (C,) bias in every phase (the
+    JAX ``tile(b, 4)``, by broadcasting)."""
+    return (y.unflatten(-1, (4, b.shape[0])) + b).flatten(-2)
 
 
 class ConvBlock(nn.Module):
@@ -201,7 +249,14 @@ class ConvBlock(nn.Module):
 
     ``fused`` runs the conv and the norm statistics through
     ``ops/fused_resblock.py::conv3x3_stats`` (kernel B1 on a card) — same
-    parameters and math; requires kernel 3, stride 1 and norm."""
+    parameters and math; requires kernel 3, stride 1 and norm.
+
+    The JAX block's phase modes are methods here, each the same function on
+    the same parameters computed at the coarse resolution
+    (``ops/phase_conv.py``): :meth:`upsample2x` (``nearest-up(2x)`` then
+    this block), :meth:`phase_stem` (this 7x7 block over a full-res map,
+    emitted as a phase tensor) and :meth:`from_phase` (this stride-2 block
+    over a phase tensor)."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  stride: int = 1, norm: bool = True, act: bool = True,
@@ -216,6 +271,19 @@ class ConvBlock(nn.Module):
         self.conv = Conv(in_features, features, kernel, stride, dtype)
         self.norm = InstanceNorm(features, dtype) if norm else None
 
+    def _finish(self, y: torch.Tensor, stats=None) -> torch.Tensor:
+        """The norm (with ``stats`` where the conv made them) and the ReLU,
+        as the block has them."""
+        if self.norm is not None:
+            y = self.norm(y, stats=stats)
+        return F.relu(y) if self.act else y
+
+    def _check(self, mode: str, kernel: int, stride: int) -> None:
+        if (self.conv.kernel.shape[0] != kernel
+                or self.conv.stride != stride):
+            raise ValueError(
+                f"{mode} requires kernel={kernel}, stride={stride}")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
             # Looked up on the module at call time, so a check can swap in
@@ -223,12 +291,39 @@ class ConvBlock(nn.Module):
             y, mean, var = fused_resblock.conv3x3_stats(
                 x.to(self.dtype).contiguous(), self.conv.hwio_kernel(),
                 self.conv.bias)
-            y = self.norm(y, stats=(mean, var))
-        else:
-            y = self.conv(reflect_pad(x, self.pad))
-            if self.norm is not None:
-                y = self.norm(y)
-        return F.relu(y) if self.act else y
+            return self._finish(y, (mean, var))
+        return self._finish(self.conv(reflect_pad(x, self.pad)))
+
+    def upsample2x(self, x: torch.Tensor,
+                   emit_phase: bool = False) -> torch.Tensor:
+        """``nearest-up(2x)`` of ``x`` [B, h, w, Cin], then this block, as a
+        2x2-window conv with 4*Cout stacked phase outputs at the coarse
+        size: [B, 2h, 2w, Cout], or the phase tensor [B, h, w, 4*Cout] when
+        ``emit_phase`` (for a phase-aware consumer: the heads)."""
+        self._check("upsample2x", 3, 1)
+        k, b = self.conv.weights(phase_conv.build_up_kernel)
+        y = self._finish(_add_tiled(
+            phase_conv.upsample2x_window(x.to(self.dtype), k), b))
+        return y if emit_phase else phase_conv.depth_to_space2(y)
+
+    def phase_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """This 7x7 stride-1 block over a full-res map with even H and W, as
+        a 4x4-window conv over ``space_to_depth2(x)``: the phase tensor
+        [B, H/2, W/2, 4*Cout] (the full-res activation is never built)."""
+        self._check("phase_stem", 7, 1)
+        k, b = self.conv.weights(phase_conv.build_head_kernel)
+        y = phase_conv.head_window(
+            phase_conv.space_to_depth2(x.to(self.dtype)), k, emit_phase=True)
+        return self._finish(_add_tiled(y, b))
+
+    def from_phase(self, p: torch.Tensor) -> torch.Tensor:
+        """This 3x3 stride-2 block over the full-res map held by phase tensor
+        ``p`` [B, h, w, 4*Cin], as a 2x2-window conv over it: the plain
+        output [B, h, w, Cout]."""
+        self._check("from_phase", 3, 2)
+        k, b = self.conv.weights(phase_conv.build_down_kernel)
+        return self._finish(
+            phase_conv.down2x_window(p.to(self.dtype), k) + b)
 
 
 class ResBlock(nn.Module):
@@ -250,14 +345,24 @@ class ResBlock(nn.Module):
 
 
 class Upsample(nn.Module):
-    """2x nearest-neighbour upsample followed by a 3x3 ConvBlock."""
+    """2x nearest-neighbour upsample followed by a 3x3 ConvBlock.
+
+    ``phase_form``: the same function on the same parameters as one
+    coarse-resolution phase conv (:meth:`ConvBlock.upsample2x`);
+    ``emit_phase`` then returns its phase tensor [B, h, w, 4*C] for a
+    phase-aware consumer instead of the [B, 2h, 2w, C] map."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 phase_form: bool = False, emit_phase: bool = False):
         super().__init__()
+        self.phase_form = phase_form
+        self.emit_phase = emit_phase
         self.block = ConvBlock(in_features, features, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.phase_form:
+            return self.block.upsample2x(x, self.emit_phase)
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         return self.block(x)
 

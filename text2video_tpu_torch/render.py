@@ -115,15 +115,19 @@ class Renderer:
         n_blocks: int = 9,
         dtype: torch.dtype = torch.bfloat16,
         device=None,
+        phase_form: bool = True,
     ) -> "Renderer":
         """Renderer with seeded random weights (trained weights come from a
         converted checkpoint, ``convert.py``) on ``device``, the card unless
-        the caller names another."""
+        the caller names another. ``phase_form=False`` runs the plain
+        full-resolution stem, upsamples and heads instead of their phase
+        forms (the same function and parameters)."""
         device = devices.resolve(device)
         config = config or RenderConfig()
         gen = CompositeGenerator(
             in_channels=3 * (config.n_frames_ctx + config.use_prev_frames),
             base_ch=base_ch, n_blocks=n_blocks, dtype=dtype,
+            phase_form=phase_form,
         )
         gen.reset_parameters(torch.Generator().manual_seed(seed))
         return Renderer(generator=gen.to(device).eval(), config=config)
