@@ -348,6 +348,18 @@ def test_model_axis_one_by_two_bit_equal_to_one_process(run):
         assert _equal(got, ref), i
 
 
+@pytest.mark.parametrize("case,rank", [("m22", 0), ("m22", 3), ("m12", 1)])
+def test_model_axis_step_records_the_gather(run, case, rank):
+    """A traced step under the model axis gathers the wide kernels first,
+    in the span ``train.model_gather``; the gradient sync appears only with
+    a data axis of 2."""
+    spans = _read(run["out"], case, rank)["spans"]
+    sync = ["train.grad_sync"] if case == "m22" else []
+    assert spans == ["train.model_gather", "train.g_forward",
+                     "train.g_backward", "train.d_forward",
+                     "train.d_backward"] + sync + ["train.optimizer"]
+
+
 # ---- checkpoints, the CLI and the dry run ---------------------------------------
 
 

@@ -177,6 +177,18 @@ def _equal(x, y) -> bool:
     return x == y
 
 
+@pytest.mark.parametrize("rank", range(WORLD))
+def test_dp_step_records_the_gradient_sync(run, rank):
+    """Traced, each rank's step records its phases under ``train.step``,
+    the gradient sync over the data axis between the backward passes and
+    the optimizer."""
+    with open(os.path.join(run["out"], f"spans_rank{rank}.json")) as f:
+        spans = json.load(f)
+    assert spans == ["train.g_forward", "train.g_backward",
+                     "train.d_forward", "train.d_backward",
+                     "train.grad_sync", "train.optimizer"]
+
+
 def test_dp_train_gan_repeats(run):
     """``train-gan`` over the ranks (the CLI under a process group that is
     already up), twice from seed 0: rank 0's checkpoints hold bit-equal

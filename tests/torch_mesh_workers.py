@@ -35,6 +35,23 @@ def _json(out_dir: str, case: str, rank: int, obj) -> None:
         json.dump(obj, f)
 
 
+def _traced_step(step, state, batch):
+    """``step(state, batch)`` under a CPU profile: (state, metrics, the
+    names of the spans directly under ``train.step``, in order)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from text2video_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        state, metrics = step(state, batch)
+    recs = sorted(profiling.records(), key=lambda r: r["start_ns"])
+    profiling.reset()
+    root, = [r for r in recs if r["name"] == "train.step"]
+    return state, metrics, [r["name"] for r in recs
+                            if r["parent"] == root["id"]]
+
+
 def smooth_inputs():
     """The smoothing cases' inputs, made from seeds as
     ``tests/test_smooth_sharded.py`` makes them."""
@@ -259,7 +276,9 @@ def train_ops(rank, world, store, in_dir, out_dir):
     per = batch["labels"].shape[0] // world
     mine = {k: torch.from_numpy(v[rank * per: (rank + 1) * per])
             for k, v in batch.items()}
-    state, metrics = trainer.make_train_step(cfg, mesh=mesh)(state, mine)
+    state, metrics, spans = _traced_step(
+        trainer.make_train_step(cfg, mesh=mesh), state, mine)
+    _json(out_dir, "spans", rank, spans)
     _save(out_dir, "step", rank,
           **{"metric." + k: float(v) for k, v in metrics.items()},
           **{"G.grad." + k: p.grad.numpy()
@@ -312,16 +331,20 @@ def model_ops(rank, world, store, in_dir, out_dir):
                   state.generator.state_dict().items() if k in wide}
         step = trainer.make_train_step(cfg, mesh=m)
         metrics, gathers = [], []
-        for _ in range(2):
+        for i in range(2):
             before = model_axis.gathers
-            state, met = step(state, {k: v[rows] for k, v in batch.items()})
+            rows_batch = {k: v[rows] for k, v in batch.items()}
+            if i == 0:
+                state, met, spans = _traced_step(step, state, rows_batch)
+            else:
+                state, met = step(state, rows_batch)
             gathers.append(model_axis.gathers - before)
             metrics.append({k: float(v) for k, v in met.items()})
             if m.rank == 0:
                 checkpoints.save_state(os.path.join(out_dir, name), state,
                                        cfg, mesh=m)
         _json(out_dir, name, rank, dict(sharded=wide, metrics=metrics,
-                                        gathers=gathers))
+                                        gathers=gathers, spans=spans))
         _save(out_dir, name + "_shards", rank, **shards)
 
     per = batch["labels"].shape[0] // mesh.n_data

@@ -33,6 +33,7 @@ import numpy as np
 from text2video_tpu_torch.frontend.audio import save_wav
 from text2video_tpu_torch.io import wire_native
 from text2video_tpu_torch.io.mp4 import Mp4Writer
+from text2video_tpu_torch.utils import profiling
 
 
 def write_video(
@@ -260,6 +261,9 @@ class StreamingMuxer:
     This is what makes end-to-end latency max(compute, transfer, encode)
     instead of their sum — the reference's muxer only starts after every
     frame is on disk (reference: text2video_tts.sh:45-48).
+
+    The worker records the span ``mux.encode`` a chunk (``frames``: its
+    frame count), with the request id current where the muxer was made.
     """
 
     def __init__(
@@ -290,31 +294,37 @@ class StreamingMuxer:
         self.n_frames = 0
         self._q: "queue.Queue" = queue.Queue(maxsize=4)
         self._err: List[BaseException] = []
+        # A thread starts with a context of its own: the request goes along.
+        self._request = profiling.current_request()
         self._thread = threading.Thread(target=self._work, daemon=True)
         self._thread.start()
 
     def _work(self):
-        while True:
-            item = self._q.get()
-            if item is None:
-                return
-            try:
-                kind, a, b, c = item
-                if kind == "yuv":
-                    jpegs = [_encode_jpeg(bgr, self.jpeg_quality)
-                             for bgr in yuv420_to_bgr(a, b, c)]
-                else:  # "dct": the wire's coefficients, native codec
-                    w, h = self.wh
-                    # Entropy coding only: no IDCT, no pixel re-encode.
-                    jpegs = wire_native.to_jpegs(a, b, c, h, w,
-                                                 quality=self.wire_quality)
-                # The MP4 and the AVI stream-copy the same bytes.
-                for jpeg in jpegs:
-                    self.writer.add_jpeg(jpeg)
-                if self.has_audio:
-                    self.jpegs.extend(jpegs)
-            except BaseException as e:  # surfaced in close()
-                self._err.append(e)
+        with profiling.request(self._request):
+            while True:
+                item = self._q.get()
+                if item is None:
+                    return
+                with profiling.span("mux.encode", frames=len(item[1])):
+                    self._encode(*item)
+
+    def _encode(self, kind, a, b, c):
+        try:
+            if kind == "yuv":
+                jpegs = [_encode_jpeg(bgr, self.jpeg_quality)
+                         for bgr in yuv420_to_bgr(a, b, c)]
+            else:  # "dct": the wire's coefficients, native codec
+                w, h = self.wh
+                # Entropy coding only: no IDCT, no pixel re-encode.
+                jpegs = wire_native.to_jpegs(a, b, c, h, w,
+                                             quality=self.wire_quality)
+            # The MP4 and the AVI stream-copy the same bytes.
+            for jpeg in jpegs:
+                self.writer.add_jpeg(jpeg)
+            if self.has_audio:
+                self.jpegs.extend(jpegs)
+        except BaseException as e:  # surfaced in close()
+            self._err.append(e)
 
     def add_yuv(self, y: np.ndarray, u: np.ndarray, v: np.ndarray) -> None:
         self.n_frames += y.shape[0]

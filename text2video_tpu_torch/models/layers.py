@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from text2video_tpu_torch.ops import fused_resblock, phase_conv
+from text2video_tpu_torch.utils import profiling
 
 # flax's lecun_normal draws from a normal truncated at +-2 std and rescales
 # by this constant so the kept samples have the nominal variance.
@@ -37,7 +38,9 @@ class ParamCopy:
     Keyed on each parameter's ``data_ptr()`` and ``_version``: moving a
     module changes the first, and ``load_state_dict`` (which copies in
     place) bumps the second. Parameters made under ``inference_mode`` keep
-    no version counter; their copy is made anew on every call."""
+    no version counter; their copy is made anew on every call. Every build
+    adds one to the counter ``param_copy_builds`` (``utils/profiling.py``):
+    warm serving builds none."""
 
     def __init__(self, make: Callable[..., object]):
         self.make = make
@@ -46,10 +49,12 @@ class ParamCopy:
 
     def get(self, *params: torch.Tensor):
         if any(p.is_inference() for p in params):
+            profiling.count("param_copy_builds")
             with torch.no_grad():
                 return self.make(*(p.detach() for p in params))
         key = tuple((p.data_ptr(), p._version) for p in params)
         if key != self.key:
+            profiling.count("param_copy_builds")
             with torch.no_grad():
                 self.value = self.make(*(p.detach() for p in params))
             self.key = key

@@ -30,6 +30,7 @@ from torch import nn
 
 from text2video_tpu_torch.models.layers import Conv
 from text2video_tpu_torch.parallel.mesh import Mesh, _as_bytes, _gather_bytes
+from text2video_tpu_torch.utils import profiling
 
 # Sharded kernels gathered since import, one a kernel a gather; the train
 # step checks its count and chip_smoke.py reads it.
@@ -93,8 +94,9 @@ def gathered_kernels(modules: Iterable[nn.Module],
                      mesh: Optional[Mesh]) -> Iterator[None]:
     """For the length of the block, every sharded conv of ``modules`` runs
     on its whole kernel, gathered here over the model axis in the conv's
-    compute dtype (no collective when none is sharded); gradients reach the
-    local shards. Every rank of the model group must enter the block."""
+    compute dtype (no collective when none is sharded) under the span
+    ``train.model_gather``; gradients reach the local shards. Every rank of
+    the model group must enter the block."""
     global gathers
     convs = sharded_convs(modules)
     if not convs:
@@ -103,7 +105,7 @@ def gathered_kernels(modules: Iterable[nn.Module],
     if mesh is None or mesh.n_model == 1:
         raise ValueError("sharded conv kernels need the mesh they were "
                          "sharded over")
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("train.model_gather"):
         fulls = _gather_last_axis(
             [c.kernel.detach().to(c.dtype) for c in convs], mesh)
     gathers += len(convs)

@@ -16,8 +16,9 @@ generator; streaming sends each chunk to a muxer thread as it finishes, as
 DCT coefficients that the muxer turns into JPEGs with the native codec
 (``RenderConfig.wire_format="dct"``, the default) or as YUV420 planes.
 The entry points add the frontend's host seconds (``tts``, ``align``) to
-the run's ``stage_seconds``. ``run_audio_batch`` renders many utterances as
-one batch.
+the run's ``stage_seconds``. Each stage is also a span of the program's
+recorder (``utils/profiling.py``), under the request's root span.
+``run_audio_batch`` renders many utterances as one batch.
 
 With a mesh (``parallel.make_mesh``; every rank builds the pipeline and calls
 it with the same arguments), the pose stage smooths one utterance with its
@@ -71,6 +72,7 @@ from text2video_tpu_torch.ops.rasterize import (
 )
 from text2video_tpu_torch.pose_stage import PoseStage
 from text2video_tpu_torch.render import Renderer
+from text2video_tpu_torch.utils import profiling
 from text2video_tpu_torch.utils.logging import get_logger
 from text2video_tpu_torch.utils.profiling import StageTimer
 
@@ -179,6 +181,13 @@ class Text2VideoPipeline:
         sample_rate: int = ALIGN_SAMPLE_RATE,
         keep_arrays: bool = False,
     ) -> RunResult:
+        """One utterance's timeline to its video files. The call is the
+        request ``name`` and the span ``synthesize``
+        (``utils/profiling.py``)."""
+        with profiling.request(name), profiling.span("synthesize"):
+            return self._synthesize(ts, name, audio, sample_rate, keep_arrays)
+
+    def _synthesize(self, ts, name, audio, sample_rate, keep_arrays):
         cfg = self.config
         timer = StageTimer()
         with timer.stage("pose_synthesis"):
@@ -195,9 +204,12 @@ class Text2VideoPipeline:
 
         labels = None
         frames = None
+        on_card = self.device.type == "cuda"
         if self.renderer is not None:
             w2, h2 = raster_canvas
-            with timer.stage("rasterize"):
+            # The stage's seconds are the drawing's enqueue; its span's
+            # device_ms is its extent on the card.
+            with timer.stage("rasterize", device=on_card):
                 chunks = rasterize_batch(
                     face, pose, hands[:, 0], hands[:, 1], raster_canvas,
                     chunk=self.renderer.time_bucket, to_host=False,
@@ -239,7 +251,7 @@ class Text2VideoPipeline:
                     labels = np.concatenate(
                         [c.cpu().numpy() for c in chunks], axis=0)[:t_frames]
         else:
-            with timer.stage("rasterize"):
+            with timer.stage("rasterize", device=on_card):
                 if self.mesh is not None:
                     labels = rasterize_batch_sharded(
                         face, pose, hands[:, 0], hands[:, 1], raster_canvas,
@@ -351,10 +363,18 @@ class Text2VideoPipeline:
         pipeline's), the batch axis shards over its "data" axis and
         replicates over its "model" axis: each rank scans its data index's
         len(items) / n rows, which must divide; global rank 0 writes the
-        files. Returns a RunResult per item, in input order."""
+        files. Returns a RunResult per item, in input order. The call is
+        one request, its id the items' file names joined by ``+``, under
+        the span ``audio_batch``."""
         mesh = self.mesh if mesh is None else mesh
         if self.aligner is None:
             raise RuntimeError("run_audio_batch needs an EnglishAligner")
+        items = list(items)
+        rid = "+".join(derive_file_name(text) for text, _ in items)
+        with profiling.request(rid), profiling.span("audio_batch"):
+            return self._run_audio_batch(items, mesh, keep_arrays)
+
+    def _run_audio_batch(self, items, mesh, keep_arrays):
         cfg = self.config
         timer = StageTimer()
         on_device = self.renderer is not None
@@ -366,7 +386,8 @@ class Text2VideoPipeline:
                 pose_res = self.pose_stage.run(
                     res.phones, device=cfg.pose_device == "device")
             face, pose, hands, canvas = self._render_tracks(pose_res)
-            with timer.stage("rasterize"):
+            with timer.stage("rasterize",
+                             device=self.device.type == "cuda"):
                 # With a renderer, labels stay on the device: concatenated,
                 # padded and stacked there.
                 labels = rasterize_batch(

@@ -59,6 +59,7 @@ from text2video_tpu_torch.parallel.mesh import (
     halo_rows,
     padded_rows,
 )
+from text2video_tpu_torch.utils import profiling
 
 Carry = Tuple[torch.Tensor, torch.Tensor, int]
 
@@ -174,38 +175,41 @@ class Renderer:
         only the last chunk may be cut."""
         b, c, h, w, _ = labels.shape
         steps = c if steps is None else steps
-        h2, w2 = self.target_hw(h, w)
-        labels = labels.float()
-        if (h2, w2) != (h, w):
-            labels = resize_labels(labels, h2, w2)
-        prev_imgs, prev_labels, step = carry
-        dt = self.generator.dtype
-        lab_t = labels.transpose(0, 1).to(dt)  # [C, B, H', W', 3]
-        n_ctx = self.config.n_frames_ctx
-        if c < n_ctx - 1:
-            raise ValueError(
-                f"chunk of {c} frames < n_frames_ctx-1 ({n_ctx - 1})")
-        ctx = [lab_t]
-        for k in range(1, n_ctx):
-            # shifted_k[i] = label of frame i-k; prev_labels[..., 3m:3m+3]
-            # holds frame -1-m.
-            head = [prev_labels[None, ..., 3 * (k - i - 1): 3 * (k - i)]
-                    for i in range(k)]
-            ctx.append(torch.cat(head + [lab_t[: c - k]], dim=0))
-        labels_ctx_t = torch.cat(ctx, dim=-1)
+        # The host's enqueue of the chunk's launches.
+        with profiling.span("render.chunk", frames=steps * b):
+            h2, w2 = self.target_hw(h, w)
+            labels = labels.float()
+            if (h2, w2) != (h, w):
+                labels = resize_labels(labels, h2, w2)
+            prev_imgs, prev_labels, step = carry
+            dt = self.generator.dtype
+            lab_t = labels.transpose(0, 1).to(dt)  # [C, B, H', W', 3]
+            n_ctx = self.config.n_frames_ctx
+            if c < n_ctx - 1:
+                raise ValueError(
+                    f"chunk of {c} frames < n_frames_ctx-1 ({n_ctx - 1})")
+            ctx = [lab_t]
+            for k in range(1, n_ctx):
+                # shifted_k[i] = label of frame i-k; prev_labels[..., 3m:3m+3]
+                # holds frame -1-m.
+                head = [prev_labels[None, ..., 3 * (k - i - 1): 3 * (k - i)]
+                        for i in range(k)]
+                ctx.append(torch.cat(head + [lab_t[: c - k]], dim=0))
+            labels_ctx_t = torch.cat(ctx, dim=-1)
 
-        prev = prev_imgs.to(dt)
-        frames = []
-        for i in range(steps):
-            has_prev = torch.full((b,), float(step + i > 0),
-                                  device=labels.device)
-            frame, _, _ = self.generator(labels_ctx_t[i], prev, has_prev)
-            frame = frame.to(dt)
-            prev = torch.cat([frame, prev[..., :-3]], dim=-1)
-            frames.append(frame)
-        new_prev_labels = torch.cat(
-            [lab_t[c - 1 - m] for m in range(n_ctx - 1)], dim=-1)
-        return torch.stack(frames, dim=1), (prev, new_prev_labels, step + c)
+            prev = prev_imgs.to(dt)
+            frames = []
+            for i in range(steps):
+                has_prev = torch.full((b,), float(step + i > 0),
+                                      device=labels.device)
+                frame, _, _ = self.generator(labels_ctx_t[i], prev, has_prev)
+                frame = frame.to(dt)
+                prev = torch.cat([frame, prev[..., :-3]], dim=-1)
+                frames.append(frame)
+            new_prev_labels = torch.cat(
+                [lab_t[c - 1 - m] for m in range(n_ctx - 1)], dim=-1)
+            carry = (prev, new_prev_labels, step + c)
+            return torch.stack(frames, dim=1), carry
 
     def _render_chunk(self, labels: torch.Tensor, carry: Carry,
                       steps: Optional[int] = None
@@ -460,12 +464,15 @@ class Renderer:
         device, in ``config.wire_format``: DCT coefficients of the float
         YUV420 planes, or the rounded uint8 planes."""
         cfg = self.config
-        if cfg.wire_format == "dct":
-            yq, uq, vq = encode_yuv(
-                *rgb_norm_to_yuv420_float(frames), quality=cfg.wire_quality,
-                k_luma=cfg.wire_k_luma, k_chroma=cfg.wire_k_chroma)
-            return self._pack_coeff_planes(yq, uq, vq)
-        return torch.cat([p.reshape(-1) for p in rgb_norm_to_yuv420(frames)])
+        with profiling.span("wire.encode"):
+            if cfg.wire_format == "dct":
+                yq, uq, vq = encode_yuv(
+                    *rgb_norm_to_yuv420_float(frames),
+                    quality=cfg.wire_quality, k_luma=cfg.wire_k_luma,
+                    k_chroma=cfg.wire_k_chroma)
+                return self._pack_coeff_planes(yq, uq, vq)
+            return torch.cat([p.reshape(-1)
+                              for p in rgb_norm_to_yuv420(frames)])
 
     def _split_wire(self, arr: np.ndarray, n: int, h2: int, w2: int):
         """One pulled wire array of ``n`` frames -> its three per-plane
@@ -515,14 +522,17 @@ class Renderer:
         chunk. Chunk i's wire tensor is copied to pinned host memory
         asynchronously while chunk i+1 is rendered, and handed out only after
         that, so the copy and the consumer overlap the next chunk's compute.
-        ``timer`` (a StageTimer) records the wait in ``render_pull``."""
+        ``timer`` (a StageTimer) records the wait in ``render_pull``; the
+        counter ``wire_bytes`` adds up the wire tensors copied."""
         def span(name):
             return timer.stage(name) if timer else contextlib.nullcontext()
 
         pending = None
         for frames in self._frame_chunks(label_chunks, t):
-            copy = (_to_host_async(self._encode_wire(frames)),
-                    frames.shape[0], tuple(frames.shape[1:3]))
+            wire = self._encode_wire(frames)
+            profiling.count("wire_bytes", wire.nbytes)
+            copy = (_to_host_async(wire), frames.shape[0],
+                    tuple(frames.shape[1:3]))
             if pending is not None:
                 yield self._wait_host(pending, span)
             pending = copy

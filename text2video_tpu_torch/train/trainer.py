@@ -31,6 +31,13 @@ held as output-channel shards (``parallel.mesh.shard_params``): each
 micro-batch gathers them whole once (``parallel.model_axis``), the ranks of
 a model group run the same rows, and each averages and updates only its
 shards.
+
+While a ``torch.profiler`` profile runs, a step records the span
+``train.step`` (``utils/profiling.py``; its request the step's index) and
+under it a span a phase, in order: ``train.model_gather`` (with sharded
+kernels), ``train.g_forward``, ``train.g_backward``, ``train.d_forward``,
+``train.d_backward`` (each micro-batch), ``train.grad_sync`` (over a data
+axis) and ``train.optimizer``.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from text2video_tpu_torch.models.discriminator import (
 from text2video_tpu_torch.models.generator import CompositeGenerator
 from text2video_tpu_torch.parallel import model_axis
 from text2video_tpu_torch.parallel.mesh import mean_ordered
+from text2video_tpu_torch.utils import profiling
 
 METRICS = ("g_loss", "g_adv", "g_fm", "g_vgg", "g_flow", "g_mouth_l1",
            "d_loss")
@@ -422,16 +430,22 @@ def make_train_step(cfg: TrainConfig, mesh=None) -> Step:
                 + L.lsgan_d(f_real, f_fake))
 
     def grads_once(state: TrainerState, batch, g_params, d_params):
-        """One G and D gradient evaluation on a (micro-)batch."""
-        g_loss, metrics, fakes = g_objective(state, batch)
-        g_grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
+        """One G and D gradient evaluation on a (micro-)batch, a span each
+        phase (outside every remat region)."""
+        with profiling.span("train.g_forward"):
+            g_loss, metrics, fakes = g_objective(state, batch)
+        with profiling.span("train.g_backward"):
+            g_grads = torch.autograd.grad(g_loss, g_params,
+                                          allow_unused=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         d_grads = None
         d_loss = torch.zeros((), device=g_loss.device)
         if adversarial:
-            d_loss = d_objective(state, batch, fakes.detach())
-            d_grads = torch.autograd.grad(d_loss, d_params,
-                                          allow_unused=True)
+            with profiling.span("train.d_forward"):
+                d_loss = d_objective(state, batch, fakes.detach())
+            with profiling.span("train.d_backward"):
+                d_grads = torch.autograd.grad(d_loss, d_params,
+                                              allow_unused=True)
             d_loss = d_loss.detach()
         metrics["d_loss"] = d_loss
         return g_grads, d_grads, metrics
@@ -445,7 +459,8 @@ def make_train_step(cfg: TrainConfig, mesh=None) -> Step:
 
     def step(state: TrainerState, batch):
         with deterministic_algorithms():
-            return deterministic_step(state, batch)
+            with profiling.request(state.step), profiling.span("train.step"):
+                return deterministic_step(state, batch)
 
     def deterministic_step(state: TrainerState, batch):
         accum = max(int(cfg.grad_accum), 1)
@@ -488,23 +503,25 @@ def make_train_step(cfg: TrainConfig, mesh=None) -> Step:
             # metrics, summed in rank order.
             names = sorted(metrics)
             d_list = d_total if d_total is not None else []
-            synced = mean_ordered(
-                g_total + d_list + [metrics[k] for k in names], mesh)
+            with profiling.span("train.grad_sync"):
+                synced = mean_ordered(
+                    g_total + d_list + [metrics[k] for k in names], mesh)
             g_total = synced[:len(g_total)]
             if d_total is not None:
                 d_total = synced[len(g_total): len(g_total) + len(d_list)]
             metrics = dict(zip(names, synced[len(g_total) + len(d_list):]))
-        for p, g in zip(g_params, g_total):
-            p.grad = g / accum if accum > 1 else g
-        state.g_opt.step()
-        if adversarial:
-            for p, g in zip(d_params, d_total):
+        with profiling.span("train.optimizer"):
+            for p, g in zip(g_params, g_total):
                 p.grad = g / accum if accum > 1 else g
-            state.d_opt.step()
-        else:
-            # Reconstruction pretrain: the Ds stay at their init.
-            for p in d_params:
-                p.grad = None
+            state.g_opt.step()
+            if adversarial:
+                for p, g in zip(d_params, d_total):
+                    p.grad = g / accum if accum > 1 else g
+                state.d_opt.step()
+            else:
+                # Reconstruction pretrain: the Ds stay at their init.
+                for p in d_params:
+                    p.grad = None
         state.step += 1
         return state, metrics
 
