@@ -4,7 +4,9 @@
 
 Builds the hand-written kernels from ``text2video_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the shapes the serving path gives
-it, runs one full-width generator forward through the kernel against the
+it (the norm kernels on every block of a bf16 generator forward at the
+fadg0 and henan serving shapes, timed beside the eager chain they replace:
+``[norm]``), runs one full-width generator forward through the kernel against the
 same forward through the plain version, holds the generator's phase forms
 (the default, as in the JAX package: the stem, the decoder's upsamples and
 the heads as coarse-resolution window convs, ``ops/phase_conv.py``) against
@@ -219,15 +221,30 @@ BATCH_TEXTS = (  # four utterances of different lengths and names
 )
 
 
+def reset_launches() -> None:
+    """Every kernel's launch counter at 0."""
+    from text2video_tpu_torch.ops import fused_norm, fused_pose, fused_resblock
+
+    fused_resblock.launches = 0
+    fused_pose.launches = 0
+    fused_norm.launches.update(norm_stats=0, norm_apply=0)
+
+
+def launch_counts() -> dict:
+    """Launches by kernel since :func:`reset_launches`."""
+    from text2video_tpu_torch.ops import fused_norm, fused_pose, fused_resblock
+
+    return {"conv3x3_stats": fused_resblock.launches,
+            "synthesize_and_smooth": fused_pose.launches,
+            **fused_norm.launches}
+
+
 def run_main(main_fn, argv):
     """``main_fn(argv)`` (an entry point that returns its exit code) in this
     process with the launch counters at 0: (the lines it printed, wall
     seconds, launches by kernel)."""
-    from text2video_tpu_torch.ops import fused_pose, fused_resblock
-
     buf = io.StringIO()
-    fused_resblock.launches = 0
-    fused_pose.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -235,9 +252,7 @@ def run_main(main_fn, argv):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(rc == 0, f"{main_fn.__module__} {argv[0]} returned {rc}")
-    launches = {"conv3x3_stats": fused_resblock.launches,
-                "synthesize_and_smooth": fused_pose.launches}
-    return buf.getvalue().strip().splitlines(), wall, launches
+    return buf.getvalue().strip().splitlines(), wall, launch_counts()
 
 
 def run_cli(argv):
@@ -278,6 +293,18 @@ def check_launches(name: str, launches: dict, steps: int, b2: int) -> None:
     check(launches["synthesize_and_smooth"] == b2,
           f"{name}: B2 launched {launches['synthesize_and_smooth']} times, "
           f"not {b2}")
+    check_norm_launches(name, launches, steps)
+
+
+def check_norm_launches(name: str, launches: dict, steps: int) -> None:
+    """The norm kernels of ``steps`` generator steps: the apply after all
+    25 convs of a step, the statistics after the 7 that B1 does not
+    serve."""
+    check((launches["norm_stats"], launches["norm_apply"])
+          == (7 * steps, 25 * steps),
+          f"{name}: norm kernels launched {launches['norm_stats']} and "
+          f"{launches['norm_apply']} times, not 7 and 25 a step "
+          f"({steps} steps)")
 
 
 def device_profile(fn, steps: int):
@@ -664,13 +691,11 @@ def jacobi_phases(data: str, ckpt: str, out_dir: str, scan_renderer,
     jac.render_from_device_chunks(chunks[:1], CHUNK)  # warm the batch-64 path
     # The counted run.
     torch.cuda.reset_peak_memory_stats()
-    fused_resblock.launches = 0
-    fused_pose.launches = 0
+    reset_launches()
     with RecordB1Shapes() as shapes:
         frames, jac_s = timed(
             lambda: jac.render_from_device_chunks(chunks, t))
-    launches = {"conv3x3_stats": fused_resblock.launches,
-                "synthesize_and_smooth": fused_pose.launches}
+    launches = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n_buckets = -(-t // CHUNK)
     check(launches["conv3x3_stats"] == 18 * n_buckets * JACOBI_SWEEPS,
@@ -1559,8 +1584,11 @@ def recipe_phase(tmp: str, data: str) -> dict:
     check_mp4(clip, (384, 512))
     many, one, tts = (counted[k]["launches"] for k in (
         "eval_gan_many", "eval_gan", "clip"))
-    check(many == {"conv3x3_stats": 4 * 18 * 8, "synthesize_and_smooth": 0}
-          and one == {"conv3x3_stats": 18 * 8, "synthesize_and_smooth": 0},
+    # 4 checkpoints x 8 frames and 1 x 8: B1 18 a step, the norm 7 and 25.
+    check(many == {"conv3x3_stats": 4 * 18 * 8, "synthesize_and_smooth": 0,
+                   "norm_stats": 4 * 7 * 8, "norm_apply": 4 * 25 * 8}
+          and one == {"conv3x3_stats": 18 * 8, "synthesize_and_smooth": 0,
+                      "norm_stats": 7 * 8, "norm_apply": 25 * 8},
           f"recipe evaluations launched {many}, {one}")
     check_launches("recipe clip", tts, clip["frames"], 1)
     phase("recipe", hw="512x384", base_ch=64, n_blocks=9, dtype="bf16",
@@ -1652,13 +1680,9 @@ def _sha(a: np.ndarray) -> str:
 
 def _counted(fn):
     """(``fn()``, wall seconds, launches by kernel) with the counters at 0."""
-    from text2video_tpu_torch.ops import fused_pose, fused_resblock
-
-    fused_resblock.launches = 0
-    fused_pose.launches = 0
+    reset_launches()
     out, wall = timed(fn)
-    return out, wall, {"conv3x3_stats": fused_resblock.launches,
-                       "synthesize_and_smooth": fused_pose.launches}
+    return out, wall, launch_counts()
 
 
 def serve_rank(mesh, spec: dict) -> dict:
@@ -2010,8 +2034,7 @@ def mesh_phases(tmp: str, data: str, ckpt: str, labels: np.ndarray,
               and mp4s == ["mesh.mp4"] and mp4_frame_count(
                   os.path.join(out, "pose", "fadg0", "mesh.mp4")) == N_FRAMES,
               f"mesh_pose_raster: files {[p['files'] for p in pr]}, {mp4s}")
-        check(all(p["launches"] == {"conv3x3_stats": 0,
-                                    "synthesize_and_smooth": 0} for p in pr),
+        check(all(n == 0 for p in pr for n in p["launches"].values()),
               f"mesh_pose_raster launched {[p['launches'] for p in pr]}")
         phase("mesh_pose_raster", **common, frames=N_FRAMES, hw="512x384",
               tracks_byte_equal=tracks_equal, labels_pixel_equal=labels_equal,
@@ -2627,6 +2650,113 @@ def phase_form_phase(dev, card: str) -> None:
     phase("phase_form", seconds=time.perf_counter() - t_start)
 
 
+# The served generators whose blocks ``[norm]`` holds and times: name,
+# (B, H, W) and its blocks' calls of ``fused_norm.finish`` in one forward.
+NORM_CONFIGS = [("fadg0", (1, 384, 512)), ("henan", (4, 512, 896))]
+NORM_STATS_TOL = 1e-5  # of the rms (mean) and mean square (var)
+NORM_ULPS = 2  # the apply on the kernel's statistics, against the twin's
+
+
+def norm_phase(dev) -> dict:
+    """``[norm]``: the norm kernels (``ops/fused_norm.py``) against their
+    twins on every block of one bf16 generator forward at the fadg0 and
+    henan serving shapes (seeded weights, norm affines and conv biases off
+    their defaults), each kernel's device time beside its bound (its bytes,
+    each read or written once, over 3.35 TB/s) and beside the eager chain
+    it replaces. Returns the totals by configuration."""
+    from text2video_tpu_torch.models import layers
+    from text2video_tpu_torch.models.generator import CompositeGenerator
+    from text2video_tpu_torch.ops import fused_norm
+
+    totals = {}
+    for name, (b, h, w) in NORM_CONFIGS:
+        g = torch.Generator().manual_seed(0)
+        gen = CompositeGenerator(in_channels=15)
+        gen.reset_parameters(g)
+        with torch.no_grad():
+            for m in gen.modules():
+                if isinstance(m, layers.InstanceNorm):
+                    m.scale.copy_(1 + 0.2 * torch.randn(m.scale.shape,
+                                                        generator=g))
+                    m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=g))
+                elif isinstance(m, layers.Conv):
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+        gen = gen.to(dev)
+        x = [t.to(dev) for t in (torch.rand((b, h, w, 9), generator=g),
+                                 torch.rand((b, h, w, 6), generator=g),
+                                 torch.ones(b))]
+        calls, finish = [], fused_norm.finish
+
+        def record(y, norm, bias=None, stats=None, relu=False,
+                   residual=None):
+            calls.append((y.clone(), norm, bias, stats, relu, residual))
+            return finish(y, norm, bias, stats, relu, residual)
+        fused_norm.finish = record
+        try:
+            with torch.inference_mode():
+                gen(*x)
+        finally:
+            fused_norm.finish = finish
+        tot = dict(blocks=len(calls), stats_ms=0.0, apply_ms=0.0,
+                   bound_ms=0.0, eager_ms=0.0)
+        with torch.inference_mode():
+            for i, (y, norm, bias, given, relu, res) in enumerate(calls):
+                c, stats = norm.scale.shape[0], given
+                t_bytes = y.numel() * y.element_size()
+                row = dict(config=name, block=i, shape=list(y.shape), c=c,
+                           planar=fused_norm._planar(y, c),
+                           residual=res is not None, relu=relu)
+                if stats is None:
+                    stats = fused_norm.norm_stats(y, c, bias)
+                    m0, v0 = fused_norm.norm_stats_plain(y, norm, bias)
+                    m2 = v0 + m0.square()
+                    row["mean_err"] = ((stats[0] - m0).abs()
+                                       / m2.sqrt()).max().item()
+                    row["var_err"] = ((stats[1] - v0).abs() / m2).max().item()
+                    check(max(row["mean_err"], row["var_err"])
+                          <= NORM_STATS_TOL, f"norm_stats: {row}")
+                    row["stats_ms"] = graph_ms(
+                        lambda: fused_norm.norm_stats(y, c, bias))
+                    row["stats_bound_ms"] = t_bytes / PEAK_BYTES * 1e3
+                    tot["stats_ms"] += row["stats_ms"]
+                    tot["bound_ms"] += row["stats_bound_ms"]
+
+                def apply():
+                    return fused_norm.norm_apply(
+                        y, *stats, norm.scale, norm.bias, norm.epsilon,
+                        bias=bias, relu=relu, residual=res)
+                out = apply()
+                twin = fused_norm.finish_plain(y, norm, bias, stats, relu,
+                                               res)
+                # ulps of bf16 at the output's magnitude, at least that of
+                # the largest input the chain rounds (y or the residual).
+                mag = torch.maximum(twin.float().abs(), y.float().abs())
+                if res is not None:
+                    mag = torch.maximum(mag, res.float().abs())
+                _, e = torch.frexp(mag.clamp_min(1e-30))
+                ulp = torch.ldexp(torch.ones_like(mag), e - 8)
+                row["apply_ulps"] = ((out.float() - twin.float()).abs()
+                                     / ulp).max().item()
+                check(row["apply_ulps"] <= NORM_ULPS and torch.equal(
+                    out, apply()), f"norm_apply: {row}")
+                row["apply_ms"] = graph_ms(apply)
+                row["apply_bound_ms"] = (3 if res is not None else 2) * (
+                    t_bytes / PEAK_BYTES * 1e3)
+                # The eager chain these calls replace, on the same inputs.
+                row["eager_ms"] = graph_ms(lambda: fused_norm.finish_plain(
+                    y, norm, bias, given, relu, res))
+                tot["apply_ms"] += row["apply_ms"]
+                tot["bound_ms"] += row["apply_bound_ms"]
+                tot["eager_ms"] += row["eager_ms"]
+                phase("norm", **row)
+        tot["bound_share"] = tot["bound_ms"] / (tot["stats_ms"]
+                                                + tot["apply_ms"])
+        phase("norm_total", config=name, batch=b, hw=f"{w}x{h}", **tot)
+        totals[name] = tot
+        del gen, calls, x
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
@@ -2730,6 +2860,8 @@ def main() -> None:
                 phase("B1", **fields)
             del x, k, y, y0
         del x32, k32
+
+    norm_totals = norm_phase(dev)
 
     # ---- 3. B2 against its plain version and the host smoother ---------------
     from text2video_tpu_torch.golden import golden_pose_inputs
@@ -2854,20 +2986,19 @@ def main() -> None:
         raster_host_phase()
 
         # The counted run: the default streaming path into the muxer.
-        fused_resblock.launches = 0
-        fused_pose.launches = 0
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run = pipeline.Text2VideoPipeline(cfg, renderer).synthesize(
             ts, "smoke", audio=audio)
         wall = time.perf_counter() - t0
-        launches = {"conv3x3_stats": fused_resblock.launches,
-                    "synthesize_and_smooth": fused_pose.launches}
+        launches = launch_counts()
         check(run.num_frames == N_FRAMES, f"streamed {run.num_frames} frames")
         check(all(v > 0 for v in launches.values()),
               f"a kernel was not launched on the serving path: {launches}")
         check(launches["conv3x3_stats"] == 18 * N_FRAMES,
               f"B1 launches {launches['conv3x3_stats']} != 18 per frame")
+        check_norm_launches("slice", launches, N_FRAMES)
         mp4 = next(f for f in run.files if f.endswith(".mp4"))
         cap = cv2.VideoCapture(mp4)
         ok, first = cap.read()
@@ -2973,6 +3104,14 @@ def main() -> None:
          "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms,
          "bound_ms": b2_bound_ms, "bound_by": b2_bound_by,
          "library_ms": None},
+        *({"name": k, "route": "cuda",
+           "source": "text2video_tpu_torch/csrc/fused_norm.cu",
+           "replaces": None,  # XLA fused the norm on the TPU
+           "launches": launches[k],
+           "launches_per_frame": launches[k] / N_FRAMES,
+           "launches_by_path": {p: v.get(k) for p, v in by_path.items()},
+           "generator_forward": norm_totals}
+          for k in ("norm_stats", "norm_apply")),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

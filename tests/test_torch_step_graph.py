@@ -6,8 +6,9 @@ CPU tests: the taps fire once a generator step, in step order, with
 ``forward``'s own arguments, as a wrapper of ``forward`` sees the steps, on
 the serving paths and in the train unroll (recompute included); the
 renderer's graph cache follows the parameters. Tests marked ``card`` hold
-the replayed steps bit-equal to the eager loop on a CUDA card and skip
-without one (decided inside the test). This file imports neither JAX nor
+the replayed steps bit-equal to the eager loop on a CUDA card, both running
+kernel B1 and the norm kernels (``ops/fused_norm.py``), and skip without one
+(decided inside the test). This file imports neither JAX nor
 the JAX package, so the card's tests run on the card's machine with
 ``python -m pytest --noconftest -m card tests/test_torch_step_graph.py``."""
 
@@ -19,7 +20,7 @@ from text2video_tpu_torch import render as render_mod
 from text2video_tpu_torch.config import RenderConfig
 from text2video_tpu_torch.models.generator import CompositeGenerator
 from text2video_tpu_torch.models.layers import param_key
-from text2video_tpu_torch.ops import fused_resblock
+from text2video_tpu_torch.ops import fused_norm, fused_resblock
 from text2video_tpu_torch.render import Renderer
 from text2video_tpu_torch.train import trainer
 
@@ -219,10 +220,17 @@ def test_replayed_steps_bit_equal_the_eager_loop(batch, h, w):
     t = 2 * tr.time_bucket + 2  # two chunks and a partial one
     labels = torch.from_numpy(np.stack(
         [_labels_u8(t, h, w, seed=s) for s in range(batch)])).to(dev)
+    # A step: B1 at the 18 resblock convs; the norm apply after all 25
+    # convs, the statistics kernel after the 7 that B1 does not serve.
+    per_step = {"norm_stats": 7 * t, "norm_apply": 25 * t}
+    fused_norm.launches.update(norm_stats=0, norm_apply=0)
     eager, eager_carry, eager_steps = _scan_all(tr, labels, eager=True)
+    assert fused_norm.launches == per_step
     fused_resblock.launches = 0
+    fused_norm.launches.update(norm_stats=0, norm_apply=0)
     graph, graph_carry, graph_steps = _scan_all(tr, labels, eager=False)
     assert fused_resblock.launches == 18 * t  # capture not counted
+    assert fused_norm.launches == per_step
     assert len(tr._graphs) == 1
     assert graph.dtype == eager.dtype and torch.equal(graph, eager)
     for a, b in zip(graph_carry, eager_carry):
@@ -232,10 +240,12 @@ def test_replayed_steps_bit_equal_the_eager_loop(batch, h, w):
     for a, b in zip(graph_steps, eager_steps):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert eager.float().std() > 0.01  # not a constant image
-    # Warm, a replayed step counts the 18 B1 calls its graph holds.
+    # Warm, a replayed step counts the B1 and norm calls its graph holds.
     fused_resblock.launches = 0
+    fused_norm.launches.update(norm_stats=0, norm_apply=0)
     _scan_all(tr, labels, eager=False)
     assert fused_resblock.launches == 18 * t
+    assert fused_norm.launches == per_step
 
 
 @pytest.mark.card

@@ -72,6 +72,13 @@ def library() -> ctypes.CDLL:
         lib.t2v_conv3x3_stats.restype = i32
         lib.t2v_synthesize_and_smooth.argtypes = [ptr] * 7 + [i32] * 2 + [ptr]
         lib.t2v_synthesize_and_smooth.restype = i32
+        lib.t2v_norm_splits.argtypes = [i32] * 6
+        lib.t2v_norm_splits.restype = i32
+        lib.t2v_norm_stats.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+        lib.t2v_norm_stats.restype = i32
+        lib.t2v_norm_apply.argtypes = ([ptr] * 8 + [i32] * 3
+                                       + [ctypes.c_float] + [i32] * 4 + [ptr])
+        lib.t2v_norm_apply.restype = i32
         _lib = lib
     return _lib
 

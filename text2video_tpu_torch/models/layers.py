@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from text2video_tpu_torch.ops import fused_resblock, phase_conv
+from text2video_tpu_torch.ops import fused_norm, fused_resblock, phase_conv
 from text2video_tpu_torch.utils import profiling
 
 # flax's lecun_normal draws from a normal truncated at +-2 std and rescales
@@ -198,11 +198,18 @@ class Conv(nn.Module):
             k = build(k)
         return phase_conv.oihw(k), b
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def without_bias(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the conv of ``x`` before its bias, the bias), both in the
+        compute dtype: for a caller that adds the bias itself."""
         w, b = self.weights()
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
                      stride=self.stride, padding=self.padding)
-        return y.permute(0, 2, 3, 1) + b
+        return y.permute(0, 2, 3, 1), b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, b = self.without_bias(x)
+        return y + b
 
 
 class InstanceNorm(nn.Module):
@@ -223,6 +230,24 @@ class InstanceNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
+    def _phased(self, x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """(``x`` as [B, h, w, phase, C] where it is a phase tensor: a view,
+        so the affine broadcasts; the phases)."""
+        phase = x.shape[-1] // self.scale.shape[0]
+        if phase > 1:
+            x = x.unflatten(-1, (phase, self.scale.shape[0]))
+        return x, phase
+
+    def statistics(self, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """([B, C] mean, [B, C] var) of ``x`` over space (and phases), in
+        f32: what :meth:`forward` takes where no ``stats`` come in."""
+        x, phase = self._phased(x)
+        dims = (1, 2, 3) if phase > 1 else (1, 2)
+        mean = x.float().mean(dim=dims)
+        m2 = x.square().float().mean(dim=dims)
+        return mean, torch.clamp(m2 - mean.square(), min=0.0)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -230,29 +255,14 @@ class InstanceNorm(nn.Module):
     ) -> torch.Tensor:
         """``stats``: precomputed ([B, C] mean, [B, C] var), as the fused
         conv kernel emits them from its f32 accumulator."""
-        phase = x.shape[-1] // self.scale.shape[0]
-        if phase > 1:
-            # [B, h, w, phase, C]: a view, so the affine below broadcasts.
-            x = x.unflatten(-1, (phase, self.scale.shape[0]))
-        dims = (1, 2, 3) if phase > 1 else (1, 2)
-        if stats is not None:
-            mean, var = stats
-        else:
-            mean = x.float().mean(dim=dims)
-            m2 = x.square().float().mean(dim=dims)
-            var = torch.clamp(m2 - mean.square(), min=0.0)
+        mean, var = stats if stats is not None else self.statistics(x)
+        x, phase = self._phased(x)
         rstd = torch.rsqrt(var + self.epsilon)
         mul = (rstd * self.scale).to(self.dtype)
         add = (self.bias - mean * rstd * self.scale).to(self.dtype)
-        idx = (slice(None),) + (None,) * len(dims)
+        idx = (slice(None),) + (None,) * (x.dim() - 2)
         y = x * mul[idx] + add[idx]
         return y.flatten(-2) if phase > 1 else y
-
-
-def _add_tiled(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A phase tensor [B, h, w, 4*C] plus the (C,) bias in every phase (the
-    JAX ``tile(b, 4)``, by broadcasting)."""
-    return (y.unflatten(-1, (4, b.shape[0])) + b).flatten(-2)
 
 
 class ConvBlock(nn.Module):
@@ -261,6 +271,11 @@ class ConvBlock(nn.Module):
     ``fused`` runs the conv and the norm statistics through
     ``ops/fused_resblock.py::conv3x3_stats`` (kernel B1 on a card) — same
     parameters and math; requires kernel 3, stride 1 and norm.
+
+    What follows the conv (its bias, the norm, the ReLU and a residual add
+    handed in by ``ResBlock``) goes through ``ops/fused_norm.py::finish``:
+    two hand-written kernels on a card outside autograd, the eager chain
+    otherwise.
 
     The JAX block's phase modes are methods here, each the same function on
     the same parameters computed at the coarse resolution
@@ -282,12 +297,20 @@ class ConvBlock(nn.Module):
         self.conv = Conv(in_features, features, kernel, stride, dtype)
         self.norm = InstanceNorm(features, dtype) if norm else None
 
-    def _finish(self, y: torch.Tensor, stats=None) -> torch.Tensor:
-        """The norm (with ``stats`` where the conv made them) and the ReLU,
+    def _finish(self, y: torch.Tensor, bias=None, stats=None,
+                residual=None) -> torch.Tensor:
+        """The conv ``bias`` where the conv left it out, the norm (with
+        ``stats`` where the conv made them), the ReLU and ``residual +``,
         as the block has them."""
         if self.norm is not None:
-            y = self.norm(y, stats=stats)
-        return F.relu(y) if self.act else y
+            # Looked up on the module at call time, so a check can swap in
+            # the plain version (chip_smoke.py does).
+            return fused_norm.finish(y, self.norm, bias, stats, self.act,
+                                     residual)
+        if bias is not None:
+            y = fused_norm.add_bias(y, bias)
+        y = F.relu(y) if self.act else y
+        return y if residual is None else residual + y
 
     def _check(self, mode: str, kernel: int, stride: int) -> None:
         if (self.conv.kernel.shape[0] != kernel
@@ -295,15 +318,18 @@ class ConvBlock(nn.Module):
             raise ValueError(
                 f"{mode} requires kernel={kernel}, stride={stride}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The block over ``x``; ``residual`` is added to its output."""
         if self.fused:
             # Looked up on the module at call time, so a check can swap in
             # the plain version (chip_smoke.py does).
             y, mean, var = fused_resblock.conv3x3_stats(
                 x.to(self.dtype).contiguous(), self.conv.hwio_kernel(),
                 self.conv.bias)
-            return self._finish(y, (mean, var))
-        return self._finish(self.conv(reflect_pad(x, self.pad)))
+            return self._finish(y, stats=(mean, var), residual=residual)
+        y, b = self.conv.without_bias(reflect_pad(x, self.pad))
+        return self._finish(y, b, residual=residual)
 
     def upsample2x(self, x: torch.Tensor,
                    emit_phase: bool = False) -> torch.Tensor:
@@ -313,8 +339,8 @@ class ConvBlock(nn.Module):
         ``emit_phase`` (for a phase-aware consumer: the heads)."""
         self._check("upsample2x", 3, 1)
         k, b = self.conv.weights(phase_conv.build_up_kernel)
-        y = self._finish(_add_tiled(
-            phase_conv.upsample2x_window(x.to(self.dtype), k), b))
+        y = self._finish(
+            phase_conv.upsample2x_window(x.to(self.dtype), k), b)
         return y if emit_phase else phase_conv.depth_to_space2(y)
 
     def phase_stem(self, x: torch.Tensor) -> torch.Tensor:
@@ -325,7 +351,7 @@ class ConvBlock(nn.Module):
         k, b = self.conv.weights(phase_conv.build_head_kernel)
         y = phase_conv.head_window(
             phase_conv.space_to_depth2(x.to(self.dtype)), k, emit_phase=True)
-        return self._finish(_add_tiled(y, b))
+        return self._finish(y, b)
 
     def from_phase(self, p: torch.Tensor) -> torch.Tensor:
         """This 3x3 stride-2 block over the full-res map held by phase tensor
@@ -333,8 +359,7 @@ class ConvBlock(nn.Module):
         output [B, h, w, Cout]."""
         self._check("from_phase", 3, 2)
         k, b = self.conv.weights(phase_conv.build_down_kernel)
-        return self._finish(
-            phase_conv.down2x_window(p.to(self.dtype), k) + b)
+        return self._finish(phase_conv.down2x_window(p.to(self.dtype), k), b)
 
 
 class ResBlock(nn.Module):
@@ -352,7 +377,13 @@ class ResBlock(nn.Module):
                                 fused=fused)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.block1(self.block0(x))
+        if self.block0.fused:
+            # B1 takes a contiguous input, so a downsample's output that is
+            # an NHWC view of NCHW memory is copied anyway: copied here, the
+            # same copy feeds B1 and the residual add that ends block1, in
+            # the layout of block1's output.
+            x = x.contiguous()
+        return self.block1(self.block0(x), residual=x)
 
 
 class Upsample(nn.Module):

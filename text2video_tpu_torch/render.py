@@ -44,7 +44,7 @@ from text2video_tpu_torch import device as devices
 from text2video_tpu_torch.config import RenderConfig
 from text2video_tpu_torch.models.generator import CompositeGenerator
 from text2video_tpu_torch.models.layers import param_key
-from text2video_tpu_torch.ops import fused_resblock
+from text2video_tpu_torch.ops import fused_norm, fused_resblock
 from text2video_tpu_torch.ops.colorspace import (
     rgb_norm_to_yuv420,
     rgb_norm_to_yuv420_float,
@@ -121,10 +121,12 @@ class StepGraph:
     Before capture two eager steps run on a side stream with the taps
     paused, so that one-time work happens outside the graphs: kernel B1's
     function attributes and driver entry point, cuDNN's plan choice, the
-    layers' ``ParamCopy`` builds. Their B1 launches, and those counted while
-    capturing, are set-up and are taken off ``fused_resblock.launches``
-    again; each replay adds the ``b1_per_step`` calls the graph holds. The
-    counter ``scan_graph_captures`` adds one a capture of the pair.
+    layers' ``ParamCopy`` builds. Their B1 and norm launches, and those
+    counted while capturing, are set-up and are taken off
+    ``fused_resblock.launches`` and ``fused_norm.launches`` again; each
+    replay adds the ``b1_per_step`` and ``norm_per_step`` calls the graph
+    holds. The counter ``scan_graph_captures`` adds one a capture of the
+    pair.
 
     A graph keeps the addresses it captured: the parameters, their
     ``ParamCopy`` tensors and its own pool. ``Renderer`` drops it when a
@@ -146,7 +148,7 @@ class StepGraph:
         self._has_prev = 0.0  # the value in ``has_prev``
         self.graphs = [torch.cuda.CUDAGraph() for _ in range(2)]
         self.frames: List[torch.Tensor] = []
-        before = fused_resblock.launches
+        before = fused_resblock.launches, dict(fused_norm.launches)
         with torch.cuda.device(dev), gen.step_taps_paused():
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -154,15 +156,18 @@ class StepGraph:
                 for k in (0, 1):
                     self._step(k)
             torch.cuda.current_stream(dev).wait_stream(side)
-            mark = fused_resblock.launches
+            mark = fused_resblock.launches, dict(fused_norm.launches)
             pool = torch.cuda.graph_pool_handle()
             for k in (0, 1):
                 # thread_local: the muxer's worker may call CUDA meanwhile.
                 with torch.cuda.graph(self.graphs[k], pool=pool,
                                       capture_error_mode="thread_local"):
                     self.frames.append(self._step(k))
-        self.b1_per_step = (fused_resblock.launches - mark) // 2
-        fused_resblock.launches = before
+        self.b1_per_step = (fused_resblock.launches - mark[0]) // 2
+        self.norm_per_step = {k: (n - mark[1][k]) // 2
+                              for k, n in fused_norm.launches.items()}
+        fused_resblock.launches = before[0]
+        fused_norm.launches.update(before[1])
         profiling.count("scan_graph_captures")
 
     def _step(self, k: int) -> torch.Tensor:
@@ -194,6 +199,8 @@ class StepGraph:
                 self.gen.fire_step_taps(self.labels, self.prev[k],
                                         self.has_prev, self.frames[k])
             fused_resblock.launches += self.b1_per_step * steps
+            for k, n in self.norm_per_step.items():
+                fused_norm.launches[k] += n * steps
             profiling.count("scan_graph_steps", self.batch * steps)
             return self.prev[steps % 2].clone()
 
