@@ -26,12 +26,8 @@ The fadg0 keypoints are also drawn on a 64x64 canvas, card against CPU
 ``tests/goldens/fadg0_Shehadyour`` by the port's bit-exact host drawing,
 pixel-equal to the PNGs the original pipeline drew, with the card's labels
 of the same keypoints held against it by SSIM (``[raster_host]``). Then it
-runs
-the user's entry points the way a user calls them: first the port's bench
-(``cli.main(["bench", ...])`` in the modes ``gen``, ``jacobi --sweeps 3``
-and ``e2e``, each line checked and its kernel launches counted; ``gen``
-gives the warm generation rate), then ``cli.main`` with the
-port's ``tts``, ``audio``, ``tts-chinese`` and ``audio-batch`` commands, on
+runs the user's entry points the way a user calls them: ``cli.main`` with
+the port's ``tts``, ``audio``, ``tts-chinese`` and ``audio-batch`` commands, on
 a data directory written from the golden frames and that renderer saved as
 a checkpoint at height 384: text becomes an mp4 through the frontend (TTS,
 forced alignment) and both kernels, and four utterances render as one
@@ -82,7 +78,7 @@ checkpoints). ``python3 chip_smoke.py --mesh`` runs the mesh phases alone
 
 Prints one line per phase (each with ``at_s``, the seconds since the start),
 then a JSON line with each kernel's launches on
-the serving path (and on each CLI and bench path), its error against the plain
+the serving path (and on each CLI path), its error against the plain
 version, its time beside the
 plain version's, a library call's (where one computes the same function)
 and its bound (the least time the card could take: bytes over 3.35 TB/s or
@@ -475,8 +471,7 @@ def wire_phase(renderer, frames_u8: np.ndarray, run_slice) -> None:
           slice_runs=json.dumps(runs))
 
 
-def cli_phases(tmp: str, data: str, ckpt: str, renderer,
-               fps_batch1: float) -> dict:
+def cli_phases(tmp: str, data: str, ckpt: str, renderer) -> dict:
     """The CLI's tts, audio, tts-chinese and audio-batch commands, each
     through ``cli.main`` with the golden data directory ``data`` and
     ``renderer`` saved as the checkpoint ``ckpt`` at height 384. Returns the
@@ -627,7 +622,7 @@ def cli_phases(tmp: str, data: str, ckpt: str, renderer,
           longest_first_diff=json.dumps(longest),
           norm_stats_row_b4_equal_b1=norm_rows_equal,
           utt_fps_batch4=total / render_s, utt_fps_batch1=total / single_s,
-          generate_fps_batch1=fps_batch1, peak_mem_gib=peak_gib,
+          peak_mem_gib=peak_gib,
           device_ms_per_step_b4=busy4, kernels_per_step_b4=n_kernels4,
           top_ms_launches_per_step_b4=top4)
     return by_path
@@ -760,102 +755,6 @@ def jacobi_phases(data: str, ckpt: str, out_dir: str, scan_renderer,
           b2_launches=n["synthesize_and_smooth"])
     by_path["cli_tts_jacobi"] = n
     return by_path
-
-
-FLOPS_PER_FRAME = 395531255808  # the 512x384 generator's convs (bench.py)
-
-
-def run_bench(argv):
-    """``cli.main(["bench", *argv])`` through :func:`run_main`, with every
-    ``Text2VideoPipeline.synthesize`` it makes recorded: (its one JSON line,
-    wall seconds, launches by kernel, frames of each pipeline run). The line
-    must name this card."""
-    from text2video_tpu_torch import cli
-    from text2video_tpu_torch.pipeline import Text2VideoPipeline
-
-    frames, synthesize = [], Text2VideoPipeline.synthesize
-
-    def recording(self, *args, **kw):
-        run = synthesize(self, *args, **kw)
-        frames.append(run.num_frames)
-        return run
-
-    Text2VideoPipeline.synthesize = recording
-    try:
-        lines, wall, n = run_main(cli.main, ["bench", *argv])
-    finally:
-        Text2VideoPipeline.synthesize = synthesize
-    check(len(lines) == 1, f"bench {argv} printed {lines}")
-    line = json.loads(lines[0])
-    card = line["device"]
-    check(card["name"] == torch.cuda.get_device_name(0)
-          and card["power_limit"].endswith(" W"),
-          f"bench {argv}: device {card}")
-    check(line["value"] > 0, f"bench {argv}: {line}")
-    return line, wall, n, frames
-
-
-def check_mfu(name: str, mfu, flops_per_s: float) -> None:
-    """``mfu`` is in (0, 1] and is ``flops_per_s`` over the H100's dense
-    bf16 peak. The bench rounds ``mfu`` to 4 places from the unrounded rate
-    and prints the rate to 2, so the two agree to half a unit of the 4th
-    place and the rate's rounding (6e-5 together)."""
-    check(mfu is not None and 0 < mfu <= 1
-          and abs(mfu - flops_per_s / PEAK_BF16) <= 6e-5,
-          f"{name}: mfu {mfu} for {flops_per_s:.4g} FLOP/s")
-
-
-def bench_phases() -> dict:
-    """The port's bench, as ``python -m text2video_tpu_torch.cli bench``
-    runs it (full size: 512x384, base 64, 9 resblocks, bf16, 256 frames), in
-    three modes: ``gen`` (batch 1 and the batch-4 extra), ``jacobi
-    --sweeps 3`` and ``e2e``. Each line is checked and B1 counted: 18
-    launches a generator call (a warm run and three timed ones at each batch
-    in ``gen``; a warm run and three of 3 sweeps x 4 buckets in ``jacobi``;
-    a warm run and two of ``e2e``, with B2 once a run). Returns the launches
-    by path and the ``gen`` line's batch-1 rate."""
-    by_path = {}
-    timed_runs = 1 + 3
-
-    line, wall, n, _ = run_bench(["--mode", "gen"])
-    check(line["metric"] == "pose2frame_generation_fps_512x384_1chip"
-          and line["flops_per_frame"] == FLOPS_PER_FRAME,
-          f"bench_gen: {line}")
-    check_mfu("bench_gen", line["mfu"], FLOPS_PER_FRAME * line["value"])
-    check_mfu("bench_gen batch4", line["batch4"]["mfu"],
-              FLOPS_PER_FRAME * line["batch4"]["fps"])
-    check_launches("bench_gen", n, 2 * timed_runs * N_FRAMES, 0)
-    gen_fps = line["value"]
-    by_path["bench_gen"] = n
-    phase("bench_gen", wall_s=wall, b1_launches=n["conv3x3_stats"],
-          line=json.dumps(line))
-
-    line, wall, n, _ = run_bench(["--mode", "jacobi", "--sweeps",
-                                  str(JACOBI_SWEEPS)])
-    check(line["metric"]
-          == f"pose2frame_jacobi{JACOBI_SWEEPS}_fps_512x384_1chip",
-          f"bench_jacobi: {line}")
-    check_mfu("bench_jacobi", line["mfu"], FLOPS_PER_FRAME * line["value"])
-    check_mfu("bench_jacobi executed", line["mfu_executed"],
-              JACOBI_SWEEPS * FLOPS_PER_FRAME * line["value"])
-    check_launches("bench_jacobi", n,
-                   timed_runs * JACOBI_SWEEPS * N_FRAMES // CHUNK, 0)
-    by_path["bench_jacobi"] = n
-    phase("bench_jacobi", wall_s=wall, b1_launches=n["conv3x3_stats"],
-          line=json.dumps(line))
-
-    line, wall, n, frames = run_bench(["--mode", "e2e"])
-    check(line["metric"] == "e2e_text2video_realtime_factor_512x384_1chip"
-          and {"pose_synthesis", "rasterize", "render", "mux"}
-          <= set(line["stage_seconds"]), f"bench_e2e: {line}")
-    check(len(frames) == 3 and len(set(frames)) == 1 and frames[0] > 0,
-          f"bench_e2e: pipeline runs of {frames} frames")
-    check_launches("bench_e2e", n, sum(frames), len(frames))
-    by_path["bench_e2e"] = n
-    phase("bench_e2e", wall_s=wall, frames=frames,
-          b1_launches=n["conv3x3_stats"],
-          b2_launches=n["synthesize_and_smooth"], line=json.dumps(line))
-    return by_path, gen_fps
 
 
 class RecordTrainSteps:
@@ -1966,7 +1865,7 @@ def mesh_phases(tmp: str, data: str, ckpt: str, labels: np.ndarray,
         check(all(not rk["loaded"] for rk in ranks),
               f"a rank imported JAX or the JAX package: "
               f"{[rk['loaded'] for rk in ranks]}")
-        from text2video_tpu_torch.bench import device_info
+        from text2video_tpu_torch.device import device_info
 
         cards = sorted({rk["device"] for rk in ranks})
         common = dict(backend=backend, world=world,
@@ -2315,7 +2214,7 @@ def mesh_model_phase(tmp: str, train_argv, labels: np.ndarray,
     serve on the grid: :func:`grid_serve_phase`. Four gloo ranks share the
     one card; on a host with four cards or more, four NCCL ranks take one
     each as well. Returns B1's launches by serving path and rank."""
-    from text2video_tpu_torch.bench import device_info
+    from text2video_tpu_torch.device import device_info
     from text2video_tpu_torch.checkpoints import (
         STATE_NAME,
         latest_step_dir,
@@ -2927,7 +2826,7 @@ def main() -> None:
     phase("generator_f32", hw="512x384", base_ch=64, n_blocks=9,
           b1_launches=n_launch, err_frame_flow_mask=gen_errs)
     del r32, out_k, out_p
-    from text2video_tpu_torch.bench import device_info
+    from text2video_tpu_torch.device import device_info
 
     card = device_info(dev)  # as nvidia-smi --query-gpu=name,power.limit
     card = f"{card['name']}, {card['power_limit']}"
@@ -3043,12 +2942,9 @@ def main() -> None:
           plain_kernels_per_frame=n_kernels0,
           plain_top_ms_launches_per_frame=top0)
     phase_form_phase(dev, card)
-    # ---- 6. the user's entry points: the bench (its gen line is the warm
-    # generation rate), then the CLI, text (or audio) in, mp4 out -----------
-    pipeline.PoseStage = port_stage  # both run unpatched from here on
+    # ---- 6. the user's entry points: the CLI, text (or audio) in, mp4 out -
+    pipeline.PoseStage = port_stage  # the CLI runs unpatched from here on
     by_path = {"slice": launches}
-    bench_paths, fps_batch1 = bench_phases()
-    by_path.update(bench_paths)
     from text2video_tpu_torch.checkpoints import save_renderer
     from text2video_tpu_torch.golden import write_golden_assets
 
@@ -3056,8 +2952,7 @@ def main() -> None:
         data = write_golden_assets(os.path.join(tmp, "data"))
         ckpt = os.path.join(tmp, "ckpt")
         save_renderer(renderer, ckpt, height=384)
-        by_path.update(cli_phases(tmp, data, ckpt, renderer,
-                                  fps_batch1=fps_batch1))
+        by_path.update(cli_phases(tmp, data, ckpt, renderer))
         # ---- 7. Jacobi decoding, 8. training -------------------------------
         by_path.update(jacobi_phases(data, ckpt, os.path.join(tmp, "jacobi"),
                                      renderer, labels[0]))

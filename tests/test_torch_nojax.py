@@ -6,9 +6,8 @@ through the default DCT wire: coefficients streamed from the renderer and
 JPEGs assembled from them by the native codec),
 ``train-gan`` takes a step on files written from the golden frames (and an
 augmented one), ``jacobi_quality``, ``eval_gan`` and ``eval_gan_many`` read
-its directory, ``make_synthetic_frames`` draws frames, the bench measures
-the scan and Jacobi decoding, and the host rasterizer and the recipe's
-selection run, in a child process where importing
+its directory, ``make_synthetic_frames`` draws frames, and the host
+rasterizer and the recipe's selection run, in a child process where importing
 jax, flax, optax, orbax or text2video_tpu fails. The mesh paths (Jacobi over
 the timeline, ``render_many``, the sharded smoother and rasterizer) run the
 same way in two gloo ranks that the child spawns, with the same modules
@@ -38,7 +37,7 @@ SCRIPT = textwrap.dedent(
         text2video_tpu_torch.__path__, "text2video_tpu_torch.")]
     for name in mods:
         importlib.import_module(name)
-    for sub in ("bench", "ops.dct", "io.wire_native", "train.trainer",
+    for sub in ("device", "ops.dct", "io.wire_native", "train.trainer",
                 "train.data", "train.loop", "train.augment",
                 "tools.jacobi_quality", "tools.eval_gan",
                 "tools.eval_gan_many", "tools.make_synthetic_frames",
@@ -134,15 +133,6 @@ SCRIPT = textwrap.dedent(
             "128", "--height", "96", "--source-width", "512",
             "--source-height", "384", "--limit", "2"]) == 0
         assert len(os.listdir(tmp + "/frames")) == 2
-
-    from text2video_tpu_torch import bench
-
-    tiny = dict(height=32, width=48, frames=4, base_ch=4, n_blocks=1,
-                device="cpu")
-    line = bench.gen_bench(1, with_extras=True, **tiny)
-    assert line["metric"] == "pose2frame_generation_fps_48x32_1chip", line
-    assert line["mfu"] is None and line["batch4"]["fps"] > 0, line
-    assert bench.jacobi_bench(2, **tiny)["value"] > 0
 
     from text2video_tpu_torch.ops.rasterize import rasterize_frame_host
     from text2video_tpu_torch.tools.mouth_recipe import select_checkpoint

@@ -1,6 +1,9 @@
 """The port's Renderer against the JAX Renderer, f32, same weights, over a
 short rollout (random weights make the warp recurrence chaotic, so parity is
-held over a few frames only)."""
+held over a few frames only), and the port's entry points against each other
+at the chunk edges of its one scan loop."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -60,14 +63,14 @@ def test_generate_device_matches_jax(renderers):
     ref = np.concatenate(
         [np.asarray(c) for c in jr.generate_device(jnp.asarray(labels))],
         axis=1)
-    # The port takes the uint8 maps and scales them a chunk at a time.
-    chunks = tr.generate_device(torch.from_numpy(_labels_u8()[None]))
-    assert [tuple(c.shape) for c in chunks] == [(1, BUCKET, H, W, 3)] * 2
-    out = torch.cat(chunks, dim=1).numpy()
-    assert out.dtype == np.uint8
-    diff = np.abs(out[:, :T].astype(int) - ref[:, :T].astype(int))
+    # The port takes the uint8 maps and scales them a chunk at a time; its
+    # frames come unpadded, the JAX package's in padded chunks.
+    out = tr.generate_device(torch.from_numpy(_labels_u8()[None]))
+    assert out.shape == (1, T, H, W, 3) and out.dtype == torch.uint8
+    out = out.numpy()
+    diff = np.abs(out.astype(int) - ref[:, :T].astype(int))
     assert diff.max() <= 1, diff.max()
-    assert out[:, :T].std() > 1.0  # not a constant image
+    assert out.std() > 1.0  # not a constant image
 
 
 def test_device_chunks_and_yuv_stream_match_jax(renderers):
@@ -112,25 +115,122 @@ def test_resize_labels_matches_jax_antialiased_downscale():
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
 
 
+def _counted(gen, fn):
+    """(fn(), how many times ``gen`` ran)."""
+    calls = []
+    hook = gen.register_forward_hook(lambda *a: calls.append(1))
+    try:
+        return fn(), len(calls)
+    finally:
+        hook.remove()
+
+
 @pytest.mark.parametrize("path", ["generate_device", "device_chunks",
                                   "yuv_stream", "render_many"])
 def test_generator_runs_once_per_frame(renderers, path):
     """The padding frames of the last chunk cost no generator step."""
     _, tr = renderers
-    calls = []
-    hook = tr.generator.register_forward_hook(lambda *a: calls.append(1))
     labels = _labels_u8()
-    try:
-        if path == "generate_device":
-            tr.generate_device(torch.from_numpy(labels)[None])
-        elif path == "device_chunks":
-            tr.render_from_device_chunks(
-                [torch.from_numpy(c) for c in _chunks(labels)], T)
-        elif path == "yuv_stream":
-            list(tr.render_stream_yuv(
-                [torch.from_numpy(c) for c in _chunks(labels)], T))
-        else:
-            tr.render_many(np.stack([labels, labels]))
-    finally:
-        hook.remove()
-    assert len(calls) == T
+    chunks = [torch.from_numpy(c) for c in _chunks(labels)]
+    paths = {
+        "generate_device": lambda: tr.generate_device(
+            torch.from_numpy(labels)[None]),
+        "device_chunks": lambda: tr.render_from_device_chunks(chunks, T),
+        "yuv_stream": lambda: list(tr.render_stream_yuv(chunks, T)),
+        "render_many": lambda: tr.render_many(np.stack([labels, labels])),
+    }
+    assert _counted(tr.generator, paths[path])[1] == T
+
+
+# (frames, label chunk lengths as the rasterizer would hand them, max_frames,
+# frames each chunk of the stream yields). BUCKET is 4 and n_frames_ctx - 1
+# is 2.
+EDGES = {
+    "t1": (1, [1], None, [1]),
+    "t2": (2, [2], None, [2]),
+    "bucket-1": (BUCKET - 1, [BUCKET - 1], None, [BUCKET - 1]),
+    "bucket": (BUCKET, [BUCKET], None, [BUCKET]),
+    "bucket+1_last_under_ctx": (BUCKET + 1, [BUCKET, 1], None, [BUCKET, 1]),
+    "2bucket+3": (2 * BUCKET + 3, [BUCKET, BUCKET, 3], None,
+                  [BUCKET, BUCKET, 3]),
+    "2bucket": (2 * BUCKET, [BUCKET, BUCKET], None, [BUCKET, BUCKET]),
+    "padded_last": (6, [BUCKET, BUCKET], None, [BUCKET, 2]),
+    # Chunks of exactly n_frames_ctx - 1: neither padded nor re-sliced.
+    "last_at_ctx": (6, [BUCKET, 2], None, [BUCKET, 2]),
+    "mid_at_ctx": (8, [BUCKET, 2, 2], None, [BUCKET, 2, 2]),
+    "over_max_frames": (7, [BUCKET, 3], 5, [BUCKET, 1]),
+    # A chunk of 1 mid-stream re-slices the timeline into chunks of 4.
+    "short_mid_stream": (7, [BUCKET, 1, 2], None, [BUCKET, 3]),
+    "short_mid_stream_over_max": (9, [2, 1, BUCKET, 2], 6, [BUCKET, 2]),
+}
+
+
+def _renderer_with(tr, max_frames):
+    if max_frames is None:
+        return tr
+    return Renderer(generator=tr.generator, time_bucket=BUCKET,
+                    config=dataclasses.replace(tr.config,
+                                               max_frames=max_frames))
+
+
+def _entry_points_agree(tr, labels, chunk_lens, counts):
+    """``render``, ``generate_device``, ``render_many_device`` and
+    ``render_from_device_chunks`` give the same uint8 frames, bit for bit,
+    ``sum(counts)`` of them; the yuv420 stream yields ``counts``; and each
+    runs the generator once a frame."""
+    t, n = labels.shape[0], sum(counts)
+    full = np.concatenate([labels, np.zeros((sum(chunk_lens) - t, H, W, 3),
+                                            np.uint8)])
+    cuts = np.cumsum([0] + chunk_lens)
+
+    def chunks():
+        return [torch.from_numpy(full[a:b]) for a, b in zip(cuts, cuts[1:])]
+
+    outs = {
+        "render": lambda: tr.render(labels),
+        "generate_device": lambda: tr.generate_device(
+            torch.from_numpy(labels)[None])[0].numpy(),
+        "render_many_device": lambda: tr.render_many_device(
+            torch.from_numpy(labels)[None])[0],
+        "render_from_device_chunks": lambda: tr.render_from_device_chunks(
+            chunks(), t),
+        "yuv_stream": lambda: [y.shape[0] for y, _, _ in
+                               tr.render_stream_yuv(chunks(), t)],
+    }
+    frames = {}
+    for name, fn in outs.items():
+        frames[name], calls = _counted(tr.generator, fn)
+        assert calls == n, (name, calls, n)
+    assert frames.pop("yuv_stream") == counts
+    ref = frames["render"]
+    assert ref.shape == (n, H, W, 3) and ref.dtype == np.uint8
+    for name, out in frames.items():
+        assert out.dtype == np.uint8 and np.array_equal(out, ref), name
+    return ref
+
+
+@pytest.mark.parametrize("case", [*EDGES, "batch2_unequal_lengths"])
+def test_entry_points_agree_at_chunk_edges(renderers, case):
+    _, tr = renderers
+    if case != "batch2_unequal_lengths":
+        t, chunk_lens, max_frames, counts = EDGES[case]
+        labels = np.random.RandomState(t).randint(0, 256, (t, H, W, 3),
+                                                  np.uint8)
+        out = _entry_points_agree(_renderer_with(tr, max_frames), labels,
+                                  chunk_lens, counts)
+        assert out.std() > 1.0  # not a constant image
+        return
+    # Two utterances of 6 and 3 frames in one batch, the shorter one padded
+    # with blank labels, as ``run_audio_batch`` pads them.
+    rows = np.zeros((2, 6, H, W, 3), np.uint8)
+    rows[0] = np.random.RandomState(6).randint(0, 256, (6, H, W, 3), np.uint8)
+    rows[1, :3] = np.random.RandomState(3).randint(0, 256, (3, H, W, 3),
+                                                   np.uint8)
+    for row, lens in zip(rows, ([BUCKET, 2], [3])):
+        _entry_points_agree(tr, row[:sum(lens)], lens, lens)
+    batch, calls = _counted(tr.generator, lambda: tr.generate_device(
+        torch.from_numpy(rows)))
+    assert calls == 6 and batch.shape == (2, 6, H, W, 3)
+    many, calls = _counted(tr.generator, lambda: tr.render_many_device(
+        torch.from_numpy(rows)))
+    assert calls == 6 and np.array_equal(batch.numpy(), many)

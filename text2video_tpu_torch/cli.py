@@ -6,9 +6,8 @@ Mirrors (reference):
   * ``text2video_audio.sh "<text>" <person>``          -> ``audio``
   * ``text2video_tts_chinese.sh "<text>" <person> f``  -> ``tts-chinese``
 plus ``audio-batch`` (many utterances as one generator batch), ``train-gan``,
-the frontend tools ``train-aligner``, ``train-aligner-zh``, ``build-dict``
-and ``build-dict-zh``, and ``bench`` (``bench.py`` of this package, the
-counterpart of the root ``bench.py``). The commands take the JAX CLI's
+and the frontend tools ``train-aligner``, ``train-aligner-zh``,
+``build-dict`` and ``build-dict-zh``. The commands take the JAX CLI's
 arguments, plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain versions), and ``audio-batch`` also takes ``--pose-device``.
 ``train-gan`` is data-parallel when several processes run it
@@ -480,12 +479,6 @@ def cmd_build_dict_zh(args) -> int:
     return 0
 
 
-def cmd_bench(args) -> int:
-    from text2video_tpu_torch import bench
-
-    return bench.run(args)
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="text2video_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -670,12 +663,6 @@ def main(argv=None) -> int:
                    "starts")
     _add_device(p)
     p.set_defaults(fn=cmd_train_gan)
-
-    p = sub.add_parser("bench", help="run the benchmark (one JSON line)")
-    from text2video_tpu_torch.bench import add_arguments
-
-    add_arguments(p)
-    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import operator
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -357,11 +358,27 @@ class Renderer:
                                                   prev_ch)
         return graph
 
-    def _render_chunk(self, labels: torch.Tensor, carry: Carry,
-                      steps: Optional[int] = None
-                      ) -> Tuple[torch.Tensor, Carry]:
-        frames, carry = self._scan_chunk(labels, carry, steps)
-        return _quantize_u8(frames), carry
+    def _scan_frames(self, label_chunks, t: int) -> Iterator[torch.Tensor]:
+        """The scan over an utterance batch: [B, n, H, W, 3] uint8 label
+        chunks on the device -> its frames in [-1, 1] in the compute dtype,
+        [B, n', H', W', 3] a chunk, the n' summing to ``min(t,
+        max_frames)``. The carry passes from chunk to chunk, and the
+        generator runs once a frame (:meth:`_scan_chunk`). A chunk's frames
+        are not held here while the next chunk is scanned: a caller that
+        maps them (to uint8, say) keeps only what it made of them."""
+        chunks = self._normalize_chunks(label_chunks)
+        b, _, h, w, _ = chunks[0].shape
+        carry = self.init_carry(b, *self.target_hw(h, w))
+        rem = min(t, self.config.max_frames)
+        for chunk in chunks:
+            if rem <= 0:
+                break
+            n = min(chunk.shape[1], rem)
+            rem -= n
+            frames, carry = self._scan_chunk(chunk.float() / 127.5 - 1.0,
+                                             carry, n)
+            yield frames
+            del frames
 
     # ---- Jacobi (fixed-point) decoding -----------------------------------
 
@@ -497,17 +514,6 @@ class Renderer:
                                    mesh)
         return gather_rows(_quantize_u8(block), mesh, t).cpu().numpy()
 
-    def _jacobi_from_chunks(self, label_chunks, t: int) -> torch.Tensor:
-        """The whole timeline of on-device uint8 label chunks, Jacobi-decoded
-        with the configured sweep count: [min(t, max_frames), H', W', 3]
-        f32."""
-        chunks = list(label_chunks)
-        if not chunks:
-            raise ValueError("no label chunks")
-        want = min(t, self.config.max_frames)
-        labels = torch.cat(chunks, dim=0)[:want].float() / 127.5 - 1.0
-        return self.jacobi_device(labels, self.config.jacobi_sweeps)
-
     def render_jacobi(self, labels_u8: np.ndarray,
                       sweeps: int = 3) -> np.ndarray:
         """[T, H, W, 3] uint8 host labels -> [T, H', W', 3] uint8 frames by
@@ -519,81 +525,56 @@ class Renderer:
         frames = self.jacobi_device(labels.float() / 127.5 - 1.0, sweeps)
         return _quantize_u8(frames).cpu().numpy()
 
-    def generate_device(self, labels_u8: torch.Tensor) -> List[torch.Tensor]:
-        """[B, T, H, W, 3] uint8 label maps (scaled to [-1, 1] a chunk at a
-        time) -> list of [B, time_bucket, H', W', 3] uint8 device tensors
-        (the last chunk padded with zero frames, which the generator does
-        not run for): one generator step per frame."""
+    def generate_device(self, labels_u8: torch.Tensor) -> torch.Tensor:
+        """[B, T, H, W, 3] uint8 label maps on the device -> [B, min(T,
+        max_frames), H', W', 3] uint8 frames on the device, scanned in
+        chunks of ``time_bucket`` (:meth:`_scan_frames`)."""
         if labels_u8.dtype != torch.uint8:
             raise TypeError(f"labels must be uint8, got {labels_u8.dtype}")
-        b, t, h, w, _ = labels_u8.shape
-        carry = self.init_carry(b, *self.target_hw(h, w))
-        chunks = []
-        for lo in range(0, t, self.time_bucket):
-            chunk = (labels_u8[:, lo: lo + self.time_bucket].float()
-                     / 127.5 - 1.0)
-            steps = chunk.shape[1]
-            pad = self.time_bucket - steps
-            if pad:
-                chunk = F.pad(chunk, (0, 0, 0, 0, 0, 0, 0, pad))
-            frames_u8, carry = self._render_chunk(chunk, carry, steps)
-            chunks.append(F.pad(frames_u8, (0, 0, 0, 0, 0, 0, 0, pad)))
-        return chunks
+        t, bucket = labels_u8.shape[1], self.time_bucket
+        chunks = [labels_u8[:, lo: lo + bucket] for lo in range(0, t, bucket)]
+        return torch.cat(list(map(_quantize_u8, self._scan_frames(chunks, t))),
+                         dim=1)
 
     def render(self, labels_u8: np.ndarray) -> np.ndarray:
-        """[T, H, W, 3] uint8 label maps -> [T, H', W', 3] uint8 frames."""
+        """[T, H, W, 3] uint8 label maps -> [min(T, max_frames), H', W', 3]
+        uint8 frames."""
         t = min(labels_u8.shape[0], self.config.max_frames)
-        chunks = self.generate_device(
+        frames = self.generate_device(
             torch.as_tensor(labels_u8[None, :t], device=self.device))
-        host = [c[0].cpu().numpy() for c in chunks]
-        return np.concatenate(host, axis=0)[:t]
+        return frames[0].cpu().numpy()
 
     def render_from_device_chunks(self, label_chunks, t: int) -> np.ndarray:
         """On-device uint8 label chunks ([time_bucket, H, W, 3] each, the
-        rasterizer's ``to_host=False`` output) -> [t, H', W', 3] uint8 host
-        frames. Labels never go through the host. With
-        ``config.decode_mode == "jacobi"`` the timeline is decoded whole by
-        ``config.jacobi_sweeps`` sweeps."""
-        if self.config.decode_mode == "jacobi":
-            frames = self._jacobi_from_chunks(label_chunks, t)
-            return _quantize_u8(frames).cpu().numpy()
-        label_chunks = self._normalize_chunks(label_chunks)
-        h, w = label_chunks[0].shape[1:3]
-        carry = self.init_carry(1, *self.target_hw(h, w))
-        outs = []
-        rem = min(t, self.config.max_frames)
-        for chunk in label_chunks:
-            if rem <= 0:
-                break
-            steps = min(chunk.shape[0], rem)
-            rem -= steps
-            labels = chunk.float()[None] / 127.5 - 1.0
-            frames_u8, carry = self._render_chunk(labels, carry, steps)
-            outs.append(frames_u8)
-        return np.concatenate([c[0].cpu().numpy() for c in outs], axis=0)
+        rasterizer's ``to_host=False`` output) -> [min(t, max_frames), H',
+        W', 3] uint8 host frames, by the configured decoding
+        (:meth:`_frame_chunks`). Labels never go through the host."""
+        frames = map(_quantize_u8, self._frame_chunks(label_chunks, t))
+        return torch.cat(list(frames)).cpu().numpy()
 
     def _normalize_chunks(self, label_chunks) -> List[torch.Tensor]:
-        """Make every chunk at least n_frames_ctx-1 frames long for the
-        chunk-wide label-context assembly. A short final chunk is
-        zero-padded (its pad frames are dropped by the caller's ``t``); a
+        """Make every [B, n, H, W, 3] chunk at least n_frames_ctx-1 frames
+        long for the chunk-wide label-context assembly. A short final chunk
+        is zero-padded (its pad frames are dropped by the caller's ``t``); a
         short chunk mid-stream re-slices the whole timeline into uniform
         time_bucket chunks, which keeps the scan exact."""
         min_len = self.config.n_frames_ctx - 1
         chunks = list(label_chunks)
         if not chunks:
             raise ValueError("no label chunks")
-        if all(c.shape[0] >= min_len for c in chunks[:-1]):
+        if all(c.shape[1] >= min_len for c in chunks[:-1]):
             last = chunks[-1]
-            if last.shape[0] < min_len:
+            if last.shape[1] < min_len:
                 chunks[-1] = F.pad(
-                    last, (0, 0, 0, 0, 0, 0, 0, min_len - last.shape[0]))
+                    last, (0, 0, 0, 0, 0, 0, 0, min_len - last.shape[1]))
             return chunks
-        flat = torch.cat(chunks, dim=0)
+        flat = torch.cat(chunks, dim=1)
         bucket = max(self.time_bucket, min_len)
-        pad = (-flat.shape[0]) % bucket
+        pad = (-flat.shape[1]) % bucket
         if pad:
             flat = F.pad(flat, (0, 0, 0, 0, 0, 0, 0, pad))
-        return [flat[lo: lo + bucket] for lo in range(0, flat.shape[0], bucket)]
+        return [flat[:, lo: lo + bucket]
+                for lo in range(0, flat.shape[1], bucket)]
 
     def _pack_coeff_planes(self, yq, uq, vq) -> torch.Tensor:
         """The three coefficient planes as ONE flat wire tensor: the
@@ -722,26 +703,24 @@ class Renderer:
             yield self._split_wire(arr, n, h2, w2), (h2, w2)
 
     def _frame_chunks(self, label_chunks, t: int) -> Iterator[torch.Tensor]:
-        """The utterance's frames in [-1, 1], [n, H', W', 3] a label chunk,
-        the n summing to ``min(t, max_frames)``, by the configured decoding."""
+        """The utterance's frames in [-1, 1], [n, H', W', 3] a label chunk
+        ([n, H, W, 3] uint8 on the device), the n summing to ``min(t,
+        max_frames)``: by the scan (:meth:`_scan_frames`), or with
+        ``config.decode_mode == "jacobi"`` by ``config.jacobi_sweeps``
+        Jacobi sweeps over the whole timeline first."""
         label_chunks = list(label_chunks)
-        if self.config.decode_mode == "jacobi":
-            frames = self._jacobi_from_chunks(label_chunks, t)
-            bucket = label_chunks[0].shape[0]
-            for lo in range(0, frames.shape[0], bucket):
-                yield frames[lo: lo + bucket]
+        if self.config.decode_mode != "jacobi":
+            yield from map(operator.itemgetter(0), self._scan_frames(
+                [c[None] for c in label_chunks], t))
             return
-        chunks = self._normalize_chunks(label_chunks)
-        rem = min(t, self.config.max_frames)
-        carry = self.init_carry(1, *self.target_hw(*chunks[0].shape[1:3]))
-        for chunk in chunks:
-            if rem <= 0:
-                break
-            n = min(chunk.shape[0], rem)
-            rem -= n
-            labels = chunk.float()[None] / 127.5 - 1.0
-            frames, carry = self._scan_chunk(labels, carry, n)
-            yield frames[0]
+        if not label_chunks:
+            raise ValueError("no label chunks")
+        want = min(t, self.config.max_frames)
+        labels = torch.cat(label_chunks)[:want].float() / 127.5 - 1.0
+        frames = self.jacobi_device(labels, self.config.jacobi_sweeps)
+        bucket = label_chunks[0].shape[0]
+        for lo in range(0, frames.shape[0], bucket):
+            yield frames[lo: lo + bucket]
 
     def render_many(self, labels_u8: np.ndarray, mesh=None) -> np.ndarray:
         """[B, T, H, W, 3] uint8 host labels -> [B, T, H', W', 3] uint8
@@ -779,8 +758,7 @@ class Renderer:
         """[b, T, H, W, 3] uint8 device labels -> [b, min(T, max_frames),
         H', W', 3] uint8 host frames, one scan at batch b; with ``mesh``
         every rank's rows, gathered in rank order."""
-        t = min(labels_u8.shape[1], self.config.max_frames)
-        out = torch.cat(self.generate_device(labels_u8[:, :t]), dim=1)[:, :t]
+        out = self.generate_device(labels_u8)
         if mesh is not None:
             out = gather_rows(out, mesh)
         return out.cpu().numpy()
