@@ -406,3 +406,15 @@ def test_run_audio_batch_mesh_equals_no_mesh(render_out, tmp_path):
     assert written == sorted(os.path.basename(p) for run in ref
                              for p in run.files)
     assert sum(p.endswith(".mp4") for p in written) == 2
+
+
+def test_run_audio_batch_keeps_frames_of_their_own(render_out, tmp_path):
+    """The frames ``run_audio_batch(keep_arrays=True)`` keeps are each an
+    array of its own, not a view of the batch's result (on a card a block of
+    pinned host memory, which a kept view would hold for as long as the
+    result lives)."""
+    root = os.path.dirname(render_out)
+    runs = workers.audio_batch(root, str(tmp_path / "batch"))
+    kept = [run.frames for run in runs]
+    assert all(f.base is None and f.flags.owndata for f in kept)
+    assert not np.shares_memory(kept[0], kept[1])

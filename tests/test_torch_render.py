@@ -174,8 +174,9 @@ def _renderer_with(tr, max_frames):
 
 
 def _entry_points_agree(tr, labels, chunk_lens, counts):
-    """``render``, ``generate_device``, ``render_many_device`` and
-    ``render_from_device_chunks`` give the same uint8 frames, bit for bit,
+    """``render``, ``generate_device``, ``render_many_device``,
+    ``render_many`` and ``render_from_device_chunks`` give the same uint8
+    frames, bit for bit,
     ``sum(counts)`` of them; the yuv420 stream yields ``counts``; and each
     runs the generator once a frame."""
     t, n = labels.shape[0], sum(counts)
@@ -192,6 +193,7 @@ def _entry_points_agree(tr, labels, chunk_lens, counts):
             torch.from_numpy(labels)[None])[0].numpy(),
         "render_many_device": lambda: tr.render_many_device(
             torch.from_numpy(labels)[None])[0],
+        "render_many": lambda: tr.render_many(labels[None])[0],
         "render_from_device_chunks": lambda: tr.render_from_device_chunks(
             chunks(), t),
         "yuv_stream": lambda: [y.shape[0] for y, _, _ in
@@ -234,3 +236,4 @@ def test_entry_points_agree_at_chunk_edges(renderers, case):
     many, calls = _counted(tr.generator, lambda: tr.render_many_device(
         torch.from_numpy(rows)))
     assert calls == 6 and np.array_equal(batch.numpy(), many)
+    assert np.array_equal(many, tr.render_many(rows))

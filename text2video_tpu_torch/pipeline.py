@@ -433,7 +433,10 @@ class Text2VideoPipeline:
             results.append(RunResult(
                 name=name, num_frames=t, files=files, timestamps=ts,
                 label_maps=host_labels if keep_arrays else None,
-                frames=frames if keep_arrays else None,
+                # A copy: on a card ``frames_b`` is a block of pinned host
+                # memory (``render_many_device``), which a kept view would
+                # hold for as long as the result lives.
+                frames=frames.copy() if keep_arrays else None,
             ))
         stage_seconds = timer.totals()
         for r in results:

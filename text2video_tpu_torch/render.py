@@ -13,7 +13,8 @@ as a CUDA graph and replayed a frame (:class:`StepGraph`): the same kernels
 on the same buffers' values, one graph launch instead of ~570 from Python.
 
 ``render_many_device`` renders a batch of utterances in one scan (the
-generator step runs at batch B). ``jacobi_device`` iterates the recurrence
+generator step runs at batch B) and returns the frames in one copy into
+pinned host memory. ``jacobi_device`` iterates the recurrence
 over the whole timeline instead: each sweep runs the generator on
 ``time_bucket`` frames at once, every frame fed its neighbours of the
 previous sweep. The streaming paths send each chunk to the host as one flat
@@ -757,8 +758,20 @@ class Renderer:
     def _scan_rows(self, labels_u8: torch.Tensor, mesh) -> np.ndarray:
         """[b, T, H, W, 3] uint8 device labels -> [b, min(T, max_frames),
         H', W', 3] uint8 host frames, one scan at batch b; with ``mesh``
-        every rank's rows, gathered in rank order."""
+        every rank's rows, gathered in rank order.
+
+        On a card the frames come back in one copy into pinned memory from
+        PyTorch's caching host allocator, an order of magnitude faster than
+        a pageable ``.cpu()``. The returned array lives in that memory: the
+        allocator rounds its size up to a power of two, and once the array
+        is dropped the block goes back to the allocator's cache (not to the
+        OS) for the next call of that size. A caller that keeps many
+        results copies them out."""
         out = self.generate_device(labels_u8)
         if mesh is not None:
             out = gather_rows(out, mesh)
-        return out.cpu().numpy()
+        if out.device.type == "cpu":
+            return out.numpy()
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out)
+        return host.numpy()
