@@ -94,10 +94,10 @@ def test_converter_covers_every_flax_leaf():
         params_from_flax(bad)
 
 
-def _inputs(seed=1, b=2):
+def _inputs(seed=1, b=2, h=H, w=W):
     rng = np.random.RandomState(seed)
-    return ((rng.rand(b, H, W, 9) * 2 - 1).astype(np.float32),
-            (rng.rand(b, H, W, 6) * 2 - 1).astype(np.float32),
+    return ((rng.rand(b, h, w, 9) * 2 - 1).astype(np.float32),
+            (rng.rand(b, h, w, 6) * 2 - 1).astype(np.float32),
             np.asarray([0.0, 1.0][:b], np.float32))
 
 
@@ -115,18 +115,25 @@ def test_plain_resblocks_equal_fused_with_one_state_dict():
                                        rtol=0)
 
 
-@pytest.mark.parametrize("phase_form", [True, False])
-def test_local_enhancer_generator_matches_jax(phase_form):
-    """``n_local_enhancers=1``: the trunk at half resolution, one refinement
-    stage on top, through ``params_from_flax``."""
+@pytest.mark.parametrize("phase_form,local", [
+    pytest.param(True, 1, id="True"), pytest.param(False, 1, id="False"),
+    pytest.param(True, 2, id="True-local2"),
+    pytest.param(False, 2, id="False-local2"),
+])
+def test_local_enhancer_generator_matches_jax(phase_form, local):
+    """``n_local_enhancers`` 1 and 2: the trunk at ``1 / 2**local`` of the
+    resolution, the refinement stages on top (the second merging the
+    first's ``base_ch / 2`` channels), through ``params_from_flax``."""
     import jax
     import jax.numpy as jnp
 
     from text2video_tpu.models.generator import CompositeGenerator as JaxGen
 
-    jgen = JaxGen(base_ch=BASE, n_blocks=BLOCKS, n_local_enhancers=1,
+    jgen = JaxGen(base_ch=BASE, n_blocks=BLOCKS, n_local_enhancers=local,
                   n_local_blocks=2, dtype=jnp.float32, phase_form=phase_form)
-    labels, prev, has_prev = _inputs(seed=2)
+    # The trunk's 3 downsamples at 1 / 2**local of the canvas.
+    labels, prev, has_prev = _inputs(seed=2, h=H << (local - 1),
+                                     w=W << (local - 1))
     params = jax.jit(jgen.init)(jax.random.PRNGKey(3), jnp.asarray(labels),
                                 jnp.asarray(prev), jnp.asarray(has_prev))
     rng = np.random.RandomState(3)
@@ -139,7 +146,7 @@ def test_local_enhancer_generator_matches_jax(phase_form):
     ref = [np.asarray(a) for a in jax.jit(jgen.apply)(
         params, jnp.asarray(labels), jnp.asarray(prev), jnp.asarray(has_prev))]
     gen = CompositeGenerator(15, base_ch=BASE, n_blocks=BLOCKS,
-                             dtype=torch.float32, n_local_enhancers=1,
+                             dtype=torch.float32, n_local_enhancers=local,
                              n_local_blocks=2, phase_form=phase_form)
     sd = params_from_flax(params)
     assert len(sd) == len(jax.tree_util.tree_leaves(params))

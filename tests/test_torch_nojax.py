@@ -7,7 +7,8 @@ JPEGs assembled from them by the native codec),
 ``train-gan`` takes a step on files written from the golden frames (and an
 augmented one), ``jacobi_quality``, ``eval_gan`` and ``eval_gan_many`` read
 its directory, ``make_synthetic_frames`` draws frames, and the host
-rasterizer and the recipe's selection run, in a child process where importing
+rasterizer and the recipe's selection run, and the coarse-to-fine generator
+serves and reloads, in a child process where importing
 jax, flax, optax, orbax or text2video_tpu fails. The mesh paths (Jacobi over
 the timeline, ``render_many``, the sharded smoother and rasterizer) run the
 same way in two gloo ranks that the child spawns, with the same modules
@@ -67,8 +68,22 @@ SCRIPT = textwrap.dedent(
     assert run.frames.shape == (6, 64, 64, 3), run.frames.shape
     assert run.frames.std() > 0
 
+    # The coarse-to-fine generator: built, served in a batch and reloaded
+    # from its renderer checkpoint.
+    from text2video_tpu_torch.checkpoints import load_renderer, save_renderer
+
+    hd = Renderer.create(base_ch=8, n_blocks=1, dtype=torch.float32,
+                         device="cpu", n_local_enhancers=1)
+    hd.time_bucket = 4
+    hd_labels = torch.randint(0, 256, (2, 6, 64, 64, 3), dtype=torch.uint8)
+    hd_frames = hd.render_many_device(hd_labels)
+    assert hd_frames.shape == (2, 6, 64, 64, 3) and hd_frames.std() > 0
+    with tempfile.TemporaryDirectory() as tmp:
+        save_renderer(hd, tmp)
+        back = load_renderer(tmp, profile, device="cpu")
+    assert len(back.generator.local) == 1
+
     from text2video_tpu_torch import cli
-    from text2video_tpu_torch.checkpoints import save_renderer
     from text2video_tpu_torch.golden import write_golden_assets
 
     pipeline.PoseStage = port_stage  # the CLI reads the data directory

@@ -7,7 +7,8 @@ CPU tests: the taps fire once a generator step, in step order, with
 the serving paths and in the train unroll (recompute included); the
 renderer's graph cache follows the parameters. Tests marked ``card`` hold
 the replayed steps bit-equal to the eager loop on a CUDA card, both running
-kernel B1 and the norm kernels (``ops/fused_norm.py``), and skip without one
+kernel B1 and the norm kernels (``ops/fused_norm.py``), for the single-scale
+generator and the coarse-to-fine one at 1792x1024, and skip without one
 (decided inside the test). This file imports neither JAX nor
 the JAX package, so the card's tests run on the card's machine with
 ``python -m pytest --noconftest -m card tests/test_torch_step_graph.py``."""
@@ -171,9 +172,10 @@ def _card():
     return torch.device("cuda")
 
 
-def _card_renderer(dev, seed=0) -> Renderer:
+def _card_renderer(dev, seed=0, local=0) -> Renderer:
     torch.manual_seed(seed)
-    tr = Renderer.create(config=RenderConfig(), seed=seed, device=dev)
+    tr = Renderer.create(config=RenderConfig(), seed=seed, device=dev,
+                         n_local_enhancers=local)
     # A tenth of the lecun heads keeps flows at a few pixels, as trained
     # weights have them (a 30 px flow turns the frames to noise).
     with torch.no_grad():
@@ -213,16 +215,22 @@ def _scan_all(tr, labels_u8, eager: bool):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("batch,h,w", [(1, 384, 512), (4, 512, 896)])
-def test_replayed_steps_bit_equal_the_eager_loop(batch, h, w):
+@pytest.mark.parametrize("batch,h,w,local", [
+    (1, 384, 512, 0), (4, 512, 896, 0),
+    (4, 1024, 1792, 1),  # the trunk at 896x512, one local enhancer on top
+])
+def test_replayed_steps_bit_equal_the_eager_loop(batch, h, w, local):
     dev = _card()
-    tr = _card_renderer(dev)
+    tr = _card_renderer(dev, local=local)
     t = 2 * tr.time_bucket + 2  # two chunks and a partial one
     labels = torch.from_numpy(np.stack(
         [_labels_u8(t, h, w, seed=s) for s in range(batch)])).to(dev)
-    # A step: B1 at the 18 resblock convs; the norm apply after all 25
-    # convs, the statistics kernel after the 7 that B1 does not serve.
-    per_step = {"norm_stats": 7 * t, "norm_apply": 25 * t}
+    # A step: B1 at the trunk's 18 resblock convs; the norm apply after
+    # the trunk's 25 convs and the enhancer's 9 normed ones (stem, down, 6
+    # resblock convs, upsample: its merge conv has no norm), the
+    # statistics kernel after the 7 + 9 that B1 does not serve.
+    per_step = {"norm_stats": (7 + 9 * local) * t,
+                "norm_apply": (25 + 9 * local) * t}
     fused_norm.launches.update(norm_stats=0, norm_apply=0)
     eager, eager_carry, eager_steps = _scan_all(tr, labels, eager=True)
     assert fused_norm.launches == per_step

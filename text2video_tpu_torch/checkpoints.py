@@ -5,7 +5,9 @@ A renderer checkpoint (``save_renderer``) is a directory holding
 
 * ``config.json``: the generator's hyperparameters under the JAX
   checkpoint's meta keys (``base_ch``, ``n_blocks`` and, where the model
-  was trained at a fixed height, ``height``);
+  was trained at a fixed height, ``height``), and for a coarse-to-fine
+  generator ``n_local_enhancers`` and ``n_local_blocks`` (absent: 0 and
+  3);
 * ``generator.pt``: the generator's ``state_dict`` (flax layout: HWIO f32
   kernels; ``convert.params_from_flax`` makes one from a flax tree).
 
@@ -167,6 +169,9 @@ def save_renderer(renderer: Renderer, ckpt_dir: str,
     gen = renderer.generator
     meta = {"base_ch": int(gen.base_ch),
             "n_blocks": len(gen.trunk.res)}
+    if len(gen.local):
+        meta.update(n_local_enhancers=len(gen.local),
+                    n_local_blocks=len(gen.local[0].res))
     if height is not None:
         meta["height"] = int(height)
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -206,6 +211,8 @@ def load_renderer(
         n_blocks=int(meta.get("n_blocks", 9)),
         dtype=torch.bfloat16,
         device=device,
+        n_local_enhancers=int(meta.get("n_local_enhancers", 0)),
+        n_local_blocks=int(meta.get("n_local_blocks", 3)),
     )
     renderer.generator.load_state_dict(
         restore_generator_state(ckpt_dir), strict=True)

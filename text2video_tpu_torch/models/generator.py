@@ -103,18 +103,20 @@ class GlobalTrunk(nn.Module):
 class LocalEnhancer(nn.Module):
     """One pix2pixHD-style refinement stage at a finer scale: a 7x7 stem and
     a stride-2 block over this scale's inputs, the coarser stage's feature
-    (nearest-resized, through a zero-padded 3x3 conv) added to it, plain
-    resblocks, and a 2x upsample back to this scale (in phase form with
-    ``phase_form``, returning its phase tensor with ``emit_phase``)."""
+    (``feat_ch`` channels: the trunk's ``base_ch`` or an enhancer's
+    ``base_ch / 2``; nearest-resized, through a zero-padded 3x3 conv) added
+    to it, plain resblocks, and a 2x upsample back to this scale (in phase
+    form with ``phase_form``, returning its phase tensor with
+    ``emit_phase``)."""
 
-    def __init__(self, in_channels: int, base_ch: int, n_blocks: int,
-                 dtype: torch.dtype, phase_form: bool = False,
+    def __init__(self, in_channels: int, base_ch: int, feat_ch: int,
+                 n_blocks: int, dtype: torch.dtype, phase_form: bool = False,
                  emit_phase: bool = False):
         super().__init__()
         ch = base_ch // 2
         self.stem = ConvBlock(in_channels, ch, kernel=7, dtype=dtype)
         self.down = ConvBlock(ch, 2 * ch, stride=2, dtype=dtype)
-        self.merge = Conv(base_ch, 2 * ch, dtype=dtype, padding=1)
+        self.merge = Conv(feat_ch, 2 * ch, dtype=dtype, padding=1)
         self.res = nn.ModuleList(ResBlock(2 * ch, dtype, fused=False)
                                  for _ in range(n_blocks))
         self.up = Upsample(2 * ch, ch, dtype, phase_form, emit_phase)
@@ -158,8 +160,10 @@ class CompositeGenerator(nn.Module):
         # In the order the stages run: the coarsest first.
         last = n_local_enhancers - 1
         self.local = nn.ModuleList(
-            LocalEnhancer(in_channels, base_ch, n_local_blocks, dtype,
-                          phase_form, phase_form and i == last)
+            LocalEnhancer(in_channels, base_ch,
+                          base_ch if i == 0 else base_ch // 2,
+                          n_local_blocks, dtype, phase_form,
+                          phase_form and i == last)
             for i in range(n_local_enhancers))
         # One 7x7 conv for all six outputs: image 3 + flow 2 + mask 1.
         self.heads = Conv(base_ch // 2 if n_local_enhancers else base_ch, 6,

@@ -233,18 +233,24 @@ class Renderer:
         dtype: torch.dtype = torch.bfloat16,
         device=None,
         phase_form: bool = True,
+        n_local_enhancers: int = 0,
+        n_local_blocks: int = 3,
     ) -> "Renderer":
         """Renderer with seeded random weights (trained weights come from a
         converted checkpoint, ``convert.py``) on ``device``, the card unless
         the caller names another. ``phase_form=False`` runs the plain
         full-resolution stem, upsamples and heads instead of their phase
-        forms (the same function and parameters)."""
+        forms (the same function and parameters). ``n_local_enhancers``
+        builds the coarse-to-fine generator: the trunk at ``1 /
+        2**n_local_enhancers`` of the resolution, each local enhancer with
+        ``n_local_blocks`` resblocks."""
         device = devices.resolve(device)
         config = config or RenderConfig()
         gen = CompositeGenerator(
             in_channels=3 * (config.n_frames_ctx + config.use_prev_frames),
             base_ch=base_ch, n_blocks=n_blocks, dtype=dtype,
-            phase_form=phase_form,
+            n_local_enhancers=n_local_enhancers,
+            n_local_blocks=n_local_blocks, phase_form=phase_form,
         )
         gen.reset_parameters(torch.Generator().manual_seed(seed))
         return Renderer(generator=gen.to(device).eval(), config=config)
